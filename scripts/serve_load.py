@@ -1,13 +1,12 @@
 """Sustained concurrent load generator for the tpuclip HTTP server.
 
-VERDICT r4 item 3: `serve_microbatch_smoke` (8 requests → 1 pass) and the
-kernel qps numbers measure the device, not the server loop — window
-formation, handler threads, the engine lock, and the fallback policy had
-never been driven under sustained mixed load. This generator runs N
-concurrent clients for a fixed duration with a mixed workload (plain-text
-/search, image_b64 /search, /search_batch), all through real HTTP, and
-reports transport-robust counters (qps, per-endpoint counts, errors)
-plus wall percentiles (transport-bound through a tunnel — label them so).
+Kernel timings measure the device, not the server loop — window
+formation, handler threads, the engine lock and the fallback policy only
+show under sustained mixed load. This generator runs N concurrent clients
+for a fixed duration with a mixed workload (plain-text /search, image_b64
+/search, /search_batch), all through real HTTP, and reports qps,
+per-endpoint counts, errors and wall percentiles. It is closed-loop: each
+client sends its next request when the previous one returns.
 
 Reusable: bench.py imports run_load(); standalone CLI drives any running
 server:
@@ -81,8 +80,8 @@ def run_load(
     walls: list = []
     counts = {"text": 0, "image": 0, "batch": 0}
     errors: list = []  # capped SAMPLE of error messages
-    error_total = [0]  # unbounded failure count (review r5: len(errors)
-    queries_done = [0]  # saturated at the sample cap, hiding degradation)
+    error_total = [0]  # unbounded failure count (len(errors) saturates at
+    queries_done = [0]  # the sample cap and would hide degradation)
 
     def client(cid: int) -> None:
         i = cid  # offset so clients interleave endpoint kinds

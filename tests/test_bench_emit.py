@@ -1,11 +1,8 @@
 """Regression tests for bench.py's result-emission contract.
 
-History: round 2 lost the driver record to a timeout mid-line; round 3 to a
-single enriched JSON line (~2.9k chars) that overflowed the driver's
-~2000-char stdout tail buffer, truncating the leading metric/value keys
-(VERDICT r3 item 1). The contract now: stdout carries ONLY a compact
-summary line (hard cap well under the tail window, round-trip-checked),
-and the full enriched dict goes to bench_full.json on disk.
+The contract: stdout carries ONLY a compact summary line (hard cap well
+under a ~2000-char tail window, round-trip-checked), re-printed as results
+land, and the full enriched dict goes to bench_full.json on disk.
 """
 
 import importlib.util
@@ -46,18 +43,17 @@ def _capture_emit(m, final=False):
 
 def test_summary_line_fits_driver_tail_even_when_enriched(benchmod):
     m = benchmod
-    # Round-3-sized enrichment: dozens of keys incl. long prose fields.
+    # Heavy enrichment: dozens of keys incl. long prose fields.
     m.RESULT.update({f"prose_field_{i}": "x" * 150 for i in range(40)})
     m.RESULT.update(
         {
             "value": 1.62,
             "vs_baseline": 6.17,
-            "headline_mean_ms": 1.824,
+            "bf16_scan_p50_ms": 1.824,
             "headline_p99_ms": 2.5,
-            "indexing_images_per_min": 42287,
-            "end_to_end_images_per_min": 7466,
-            "backend": "tpu",
-            "kernel": "pallas",
+            "indexing_images_per_sec": 704.8,
+            "end_to_end_images_per_sec": 124.4,
+            "platform": "gpu",
         }
     )
     line = _capture_emit(m)
@@ -87,7 +83,7 @@ def test_summary_sheds_tail_keys_but_never_the_contract_quartet(benchmod):
             "value": 2.0,
             "vs_baseline": 5.0,
             "error": "E" * 5000,
-            "backend": "tpu",
+            "platform": "gpu",
         }
     )
     line = _capture_emit(m)
@@ -102,11 +98,11 @@ def test_progressive_emission_keeps_last_line_current(benchmod):
     m.RESULT["value"] = 3.0
     first = json.loads(_capture_emit(m))
     m.RESULT["value"] = 1.5
-    m.RESULT["indexing_images_per_min"] = 40000
+    m.RESULT["indexing_images_per_sec"] = 700.0
     second = json.loads(_capture_emit(m))
     assert first["value"] == 3.0
     assert second["value"] == 1.5
-    assert second["indexing_images_per_min"] == 40000
+    assert second["indexing_images_per_sec"] == 700.0
     # final=True marks done; later calls are no-ops
     _capture_emit(m, final=True)
     buf = io.StringIO()
@@ -126,11 +122,10 @@ def test_unwritable_full_record_does_not_block_stdout(benchmod, tmp_path):
 
 
 def test_unwritable_path_still_respects_cap(benchmod, tmp_path):
-    # Review r4 (ADVICE): the unwritable branch rebuilt the line without
-    # re-running the shed/round-trip logic; it must go through _shed_to_cap.
+    # The unwritable branch must go through the same shed/round-trip path.
     m = benchmod
     m._FULL_RECORD_PATH = str(tmp_path / "no_such_dir" / "bench_full.json")
-    m.RESULT.update({"value": 1.0, "error": "E" * 5000, "backend": "tpu"})
+    m.RESULT.update({"value": 1.0, "error": "E" * 5000, "platform": "gpu"})
     line = _capture_emit(m)
     d = json.loads(line)
     assert len(line) <= m._SUMMARY_MAX_CHARS + 200
@@ -138,90 +133,27 @@ def test_unwritable_path_still_respects_cap(benchmod, tmp_path):
 
 
 # ---------------------------------------------------------------------------
-# Measurement-integrity contract (VERDICT r4 item 1): fits carry residuals,
-# degenerate fits are flagged, implausible values are marked suspect, and
-# clamped/sub-noise served fields emit as null with a reason.
+# Device identity and timing: a bench number always names its device, and a
+# run without a GPU fails instead of recording CPU numbers.
 # ---------------------------------------------------------------------------
 
 
-def test_fit_slope_clean_line_recovers_slope_and_small_rms(benchmod):
-    m = benchmod
-    # wall(c) = 30 + 1.7 * c (exact): slope recovered, rms ~ 0.
-    fit = m._fit_slope([8, 16, 32], [30 + 1.7 * c for c in (8, 16, 32)])
-    assert abs(fit["slope_ms"] - 1.7) < 1e-9
-    assert abs(fit["intercept_ms"] - 30.0) < 1e-9
-    assert fit["rms_ms"] < 1e-9
-    assert not fit["degenerate"]
+def test_device_record_refuses_the_cpu(benchmod):
+    import jax
+
+    with pytest.raises(RuntimeError, match="GPU"):
+        benchmod.device_record(jax)
 
 
-def test_fit_slope_degenerate_when_rpc_variance_swamps_delta(benchmod):
-    # r4 run 6: binary_p50 read 0.03 ms because wall(32) < wall(8) under
-    # RPC jitter. A non-positive slope must be flagged degenerate so the
-    # caller falls back to the amortized upper bound instead of emitting
-    # a physically impossible near-zero "device time".
-    m = benchmod
-    fit = m._fit_slope([8, 16, 32], [62.0, 58.0, 55.0])
-    assert fit["degenerate"]
-    assert fit["rms_ms"] >= 0.0
+def test_time_ms_warms_then_times_every_call(benchmod):
+    import jax
 
+    calls = []
 
-def test_fit_slope_noisy_points_record_nonzero_residual(benchmod):
-    m = benchmod
-    fit = m._fit_slope([8, 16, 32], [44.0, 70.0, 84.0])
-    assert not fit["degenerate"]
-    assert fit["rms_ms"] > 1.0  # the record carries its own fit quality
+    def fn():
+        calls.append(1)
+        return jax.numpy.zeros(())
 
-
-def test_plausibility_flags_subroofline_and_out_of_band(benchmod):
-    m = benchmod
-    bad = m._check_plausibility({
-        "binary_p50_ms": 0.03,        # r4 run 6: below the 0.176 ms roofline
-        "bf16_scan_p50_ms": 3.3,      # clean
-        "cascade_10m_p50_ms": 30.0,   # way above the cross-run band
-        "value": None,                # unmeasured: passes
-        "unknown_key_ms": 0.0001,     # no spec: passes
-    })
-    assert "roofline" in bad["binary_p50_ms"]
-    assert "band" in bad["cascade_10m_p50_ms"]
-    assert "bf16_scan_p50_ms" not in bad
-    assert "value" not in bad and "unknown_key_ms" not in bad
-
-
-def test_plausibility_r4_driver_record_would_have_been_flagged(benchmod):
-    # The exact value the round-4 driver record shipped unflagged.
-    m = benchmod
-    assert m._check_plausibility({"binary_p50_ms": 0.327})
-
-
-def test_suspect_keys_survive_onto_the_summary_line(benchmod):
-    m = benchmod
-    m.RESULT.update({"value": 1.6, "vs_baseline": 6.2,
-                     "suspect": ["binary_p50_ms"]})
-    d = json.loads(_capture_emit(m))
-    assert d["suspect"] == ["binary_p50_ms"]
-
-
-def test_served_fields_null_when_transport_null_swallows_signal(benchmod):
-    import numpy as np
-
-    m = benchmod
-    # Walls barely above (and sometimes below) the nulls: p50 correction
-    # lands <= 0. Round 4 emitted 0.0 here; the contract is null + reason.
-    walls = np.array([74.0, 75.2, 74.8, 73.9, 75.1, 74.5])
-    fells = np.array([False] * 6)
-    out = m._served_corrected_fields(walls, fells, null1_ms=75.0, null2_ms=150.0)
-    assert out["served_p50_measured_ms"] is None
-    assert "sub-noise-floor" in out["served_p50_null_reason"]
-    # p99 of this sample is positive -> still reported as a number.
-    assert out["served_p99_measured_ms"] is not None
-
-
-def test_served_fields_numeric_when_signal_clears_null(benchmod):
-    import numpy as np
-
-    m = benchmod
-    walls = np.array([76.5, 77.0, 76.8, 90.0])
-    fells = np.array([False, False, False, True])
-    out = m._served_corrected_fields(walls, fells, null1_ms=75.0, null2_ms=85.0)
-    assert out["served_p50_measured_ms"] > 0
-    assert "served_p50_null_reason" not in out
+    p50, p99 = benchmod.time_ms(jax, fn, reps=7, warm=3)
+    assert len(calls) == 10
+    assert 0 <= p50 <= p99

@@ -8,7 +8,6 @@ import sqlite3
 import numpy as np
 import pytest
 
-from conftest import ON_DEVICE
 
 from tpuclip.index.search import DeviceIndex
 from tpuclip.index.store import MetadataStore
@@ -50,23 +49,10 @@ def test_cascade_full_depth_equals_exact(tmp_path, vecs, monkeypatch):
         q = rng.standard_normal(DIM).astype(np.float32)
         got = casc.search(q, 10)
         want = exact.search(q, 10)
-        if ON_DEVICE:
-            # Two different exact arithmetics on the real device: cascade
-            # rescores in host fp32, the flat index in device bf16-rounded
-            # f32 — near-tie ranks legitimately flip (~1e-3 score delta),
-            # and the approx prefilter can drop a boundary row. Assert set
-            # recall + loose scores; bit-exact equality holds on CPU.
-            overlap = len({p for p, _ in got} & {p for p, _ in want})
-            assert overlap >= 9, f"cascade vs exact overlap {overlap}/10"
-            np.testing.assert_allclose(
-                sorted(s for _, s in got), sorted(s for _, s in want),
-                rtol=5e-3, atol=1e-3,
-            )
-        else:
-            assert [p for p, _ in got] == [p for p, _ in want]
-            np.testing.assert_allclose(
-                [s for _, s in got], [s for _, s in want], rtol=1e-5
-            )
+        assert [p for p, _ in got] == [p for p, _ in want]
+        np.testing.assert_allclose(
+            [s for _, s in got], [s for _, s in want], rtol=1e-5
+        )
     # the mode's point: no flat device matrix was ever uploaded
     assert casc._matrix is None and casc._cascade
 

@@ -28,8 +28,6 @@ import pytest
 torch = pytest.importorskip("torch")
 transformers = pytest.importorskip("transformers")
 
-from conftest import cpu_only, parity_cos_bound  # noqa: E402
-
 import jax.numpy as jnp  # noqa: E402
 
 from tpuclip.models import configs as C  # noqa: E402
@@ -185,7 +183,7 @@ def test_convert_cli_then_forward_parity(hf_dir, tmp_path):
 
     for ours, ref in ((ours_img, hf_img), (ours_txt, hf_txt)):
         cos = np.sum(norm(ours) * norm(ref), axis=-1)
-        assert np.all(cos >= parity_cos_bound()), cos
+        assert np.all(cos >= 0.9999), cos
 
 
 def test_load_model_reference_flat_cache_layout(hf_dir, tmp_path):
@@ -249,7 +247,6 @@ def test_tokenizer_charsmap_normalization(hf_dir):
     assert ids[0] == 2 and ids[1] == pid["▁fine"]
 
 
-@cpu_only
 def test_full_shape_drill(tmp_path):
     """Opt-in (TPUCLIP_FULL_CHECKPOINT_DRILL=1): the same drill at the REAL
     SO400M tensor shapes — config.json with the real dims, safetensors with

@@ -11,7 +11,6 @@ import pytest
 
 import jax.numpy as jnp
 
-from conftest import ON_DEVICE
 
 from tpuclip.index.ivf import build_ivf, ivf_search
 
@@ -165,7 +164,7 @@ def test_device_index_ivf_mode(tmp_path, monkeypatch):
         assert len(true & got) / k >= 0.9
         # scores exact for returned rows (device rescore rounds the query
         # to the bf16 storage dtype — ~1e-3 vs the fp64-ish numpy oracle)
-        tol = 5e-3 if ON_DEVICE else 1e-5
+        tol = 1e-5
         for p, s in single:
             row = int(p.rsplit("/", 1)[1].split(".")[0])
             np.testing.assert_allclose(s, exact[row, q], rtol=tol, atol=tol)

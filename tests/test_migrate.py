@@ -15,7 +15,6 @@ import struct
 import numpy as np
 import pytest
 
-from conftest import ON_DEVICE
 
 from tpuclip.index.migrate import (
     detect_vec0,
@@ -199,18 +198,9 @@ def test_migrate_then_search_identical(tmp_path, ref_vecs):
     exact = ref_vecs @ q
     order = np.lexsort((np.arange(19), -exact))[:5]
     expect = [f"/ref/img_{i}.jpg" for i in order]
-    if ON_DEVICE:
-        # device rescore rounds to the bf16 storage dtype (~1e-3 vs the
-        # numpy oracle); near-tie ranks may flip — assert set + loose scores
-        assert {p for p, _ in results} == set(expect)
-        np.testing.assert_allclose(
-            sorted(s for _, s in results), sorted(exact[order]),
-            rtol=5e-3, atol=1e-3,
-        )
-    else:
-        assert [p for p, _ in results] == expect
-        for (_, s), i in zip(results, order):
-            np.testing.assert_allclose(s, exact[i], rtol=1e-5, atol=1e-6)
+    assert [p for p, _ in results] == expect
+    for (_, s), i in zip(results, order):
+        np.testing.assert_allclose(s, exact[i], rtol=1e-5, atol=1e-6)
 
 
 def test_migrate_idempotent(tmp_path, ref_vecs):

@@ -1,6 +1,6 @@
-"""True multi-process (DCN) validation on CPU: two OS processes, 4 virtual
+"""True multi-process (cross-host) validation on CPU: two OS processes, 4 virtual
 devices each, jax.distributed over a localhost coordinator — the closest
-offline stand-in for BASELINE config 5 (multi-host v5e-16). Exercises
+offline stand-in for a multi-host deployment. Exercises
 ``maybe_distributed_init`` (explicit-coordinator path), global-sharding
 placement across non-addressable devices, and the cross-process all_gather
 merge inside the sharded int8+exact-rescore search."""
@@ -30,9 +30,8 @@ _WORKER = textwrap.dedent(
     assert jax.process_count() == 2, jax.process_count()
     import numpy as np, jax.numpy as jnp
     from jax.sharding import NamedSharding, PartitionSpec as P
-    from tpuclip.ops.topk import pad_matrix_t
-    from tpuclip.ops.topk_int8 import quantize_matrix_t
-    from tpuclip.parallel.sharded_search import shard_matrix, sharded_topk_int8_rerank
+    from tpuclip.ops.topk_int8 import pad_rows, quantize_rows
+    from tpuclip.parallel.sharded_search import sharded_topk_int8_rerank
 
     mesh = make_mesh()
     ndev = mesh.shape[DATA_AXIS]
@@ -41,11 +40,10 @@ _WORKER = textwrap.dedent(
     N, D, k = 4096, 64, 5
     rows = rng.standard_normal((N, D)).astype(np.float32)
     rows /= np.linalg.norm(rows, axis=1, keepdims=True)
-    mt, n_valid = pad_matrix_t(np.ascontiguousarray(rows.T), tile_n=2048 * ndev)
-    q8, scales = quantize_matrix_t(mt)
-    matrix = shard_matrix(jnp.asarray(q8), mesh)
+    rows_pad, n_valid = pad_rows(rows, tile_n=2048 * ndev)
+    q8, scales = quantize_rows(rows_pad)
+    matrix = jax.device_put(jnp.asarray(q8), NamedSharding(mesh, P(DATA_AXIS, None)))
     scales_d = jax.device_put(jnp.asarray(scales), NamedSharding(mesh, P(DATA_AXIS)))
-    rows_pad = np.pad(rows, ((0, mt.shape[1] - N), (0, 0)))
     rows_d = jax.device_put(jnp.asarray(rows_pad), NamedSharding(mesh, P(DATA_AXIS, None)))
     queries = rng.standard_normal((2, D)).astype(np.float32)
     scores, ridx = sharded_topk_int8_rerank(
@@ -60,7 +58,7 @@ _WORKER = textwrap.dedent(
         np.testing.assert_allclose(scores[qi], exact[qi][want], rtol=1e-5)
 
     # DP training step across the two processes: batch data-sharded over the
-    # global mesh, gradients psum over DCN; loss must match the unsharded
+    # global mesh, gradients psum across the processes; loss must match the unsharded
     # local computation and decrease when memorizing one batch.
     from tpuclip.models import get_config, init_params
     from tpuclip.parallel import shard_params

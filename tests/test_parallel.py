@@ -58,7 +58,7 @@ def test_sharded_search_negative_scores_survive_padding(mesh8):
     global mask ran — searches silently returned -inf placeholders instead
     of k real rows. Both the float and int8 local paths must return every
     real row when all similarities are negative."""
-    from tpuclip.ops.topk_int8 import quantize_matrix_t, quantize_query
+    from tpuclip.ops.topk_int8 import quantize_rows, quantize_query
     from tpuclip.parallel.sharded_search import (
         pad_for_mesh,
         shard_matrix,
@@ -88,8 +88,10 @@ def test_sharded_search_negative_scores_survive_padding(mesh8):
     assert np.isfinite(s).all(), f"padding evicted real rows: {s}"
     assert (s < 0).all()
 
-    mq, scales = quantize_matrix_t(mt)
-    mq_dev = shard_matrix(jnp.asarray(mq), mesh8)
+    mq, scales = quantize_rows(mt.T)
+    mq_dev = jax.device_put(
+        jnp.asarray(mq), NamedSharding(mesh8, P(DATA_AXIS, None))
+    )
     sc_dev = jax.device_put(
         jnp.asarray(scales), NamedSharding(mesh8, P(DATA_AXIS))
     )
@@ -103,17 +105,16 @@ def test_sharded_search_negative_scores_survive_padding(mesh8):
     assert (s8 < 0).all()
 
 
-def test_sharded_search_pallas_local_kernel(mesh8):
-    """Fused Pallas kernel per shard (interpret mode on the CPU mesh) must
-    match the XLA local path and the single-device scan exactly."""
-    from tpuclip.parallel.sharded_search import pad_for_mesh, shard_matrix, sharded_topk
+def test_sharded_search_ragged_padded_matches_single_device(mesh8):
+    """A ragged index padded to a large per-shard multiple (the padding tail
+    lands in the last shard) must match the single-device scan exactly."""
+    from tpuclip.parallel.sharded_search import shard_matrix, sharded_topk
 
     rng = np.random.default_rng(5)
-    n, d, k = 4100, 128, 11  # ragged: padding tail lands in the last shard
+    n, d, k = 4100, 128, 11
     matrix = rng.standard_normal((n, d)).astype(np.float32)
     queries = rng.standard_normal((2, d)).astype(np.float32)
 
-    # pad columns to 512 * ndev so each shard is tile-aligned for tile_n=512
     ndev = 8
     mt = np.ascontiguousarray(matrix.T)
     rem = (-mt.shape[1]) % (512 * ndev)
@@ -121,29 +122,7 @@ def test_sharded_search_pallas_local_kernel(mesh8):
     dev_matrix = shard_matrix(jnp.asarray(mt_padded), mesh8)
     nv = jnp.asarray(n, jnp.int32)
 
-    import functools
-
-    import tpuclip.ops.topk as topk_mod
-
-    orig = topk_mod.topk_pallas
-
-    def small_tile(q, m, kk, n_valid=None, tile_n=None, interpret=False):
-        return orig(q, m, kk, n_valid=n_valid, tile_n=512, interpret=interpret)
-
-    topk_mod.topk_pallas = small_tile
-    try:
-        s_p, i_p = sharded_topk(
-            jnp.asarray(queries), dev_matrix, k, mesh8, nv,
-            use_pallas=True, interpret=True,
-        )
-    finally:
-        topk_mod.topk_pallas = orig
-    s_x, i_x = sharded_topk(
-        jnp.asarray(queries), dev_matrix, k, mesh8, nv, use_pallas=False
-    )
-    np.testing.assert_array_equal(np.asarray(i_p), np.asarray(i_x))
-    np.testing.assert_allclose(np.asarray(s_p), np.asarray(s_x), rtol=1e-5, atol=1e-6)
-
+    s_p, i_p = sharded_topk(jnp.asarray(queries), dev_matrix, k, mesh8, nv)
     s_ref, i_ref = topk_xla(jnp.asarray(queries), jnp.asarray(matrix.T), k)
     np.testing.assert_array_equal(np.asarray(i_p), np.asarray(i_ref))
 
@@ -456,7 +435,7 @@ def test_sharded_topk_k_exceeds_shard_rows(mesh8):
     (review r2 finding): every path pads local candidates to k."""
     from tpuclip.ops.hamming import binary_topk_packed, pack_bits_to_words
     from tpuclip.ops.topk import topk_xla
-    from tpuclip.ops.topk_int8 import quantize_matrix_t, quantize_query, topk_int8_xla
+    from tpuclip.ops.topk_int8 import quantize_query, quantize_rows, topk_int8_scan
     from tpuclip.parallel.sharded_search import (
         sharded_binary_topk,
         sharded_topk,
@@ -478,9 +457,9 @@ def test_sharded_topk_k_exceeds_shard_rows(mesh8):
     np.testing.assert_array_equal(np.asarray(got_i)[0][valid], np.asarray(ref_i)[0][: valid.sum()])
 
     # int8
-    mq, scales = quantize_matrix_t(mt)
+    mq, scales = quantize_rows(mt.T)
     qi, qs = quantize_query(q)
-    ref_s8, ref_i8 = topk_int8_xla(
+    ref_s8, ref_i8 = topk_int8_scan(
         jnp.asarray(qi), jnp.asarray(mq), jnp.asarray(scales), jnp.asarray(qs, jnp.float32), k
     )
     got_s8, got_i8 = sharded_topk_int8(
@@ -511,7 +490,7 @@ def test_sharded_int8_rerank_matches_full_precision(mesh8):
     """sharded_topk_int8_rerank == unsharded full-precision scan, exactly
     (indices AND scores): each shard rescores its int8 shortlist against its
     local full-precision rows before the candidate merge."""
-    from tpuclip.ops.topk_int8 import quantize_matrix_t
+    from tpuclip.ops.topk_int8 import quantize_rows
     from tpuclip.parallel.sharded_search import sharded_topk_int8_rerank
 
     rng = np.random.default_rng(11)
@@ -519,7 +498,7 @@ def test_sharded_int8_rerank_matches_full_precision(mesh8):
     rows = rng.standard_normal((n, d)).astype(np.float32)
     rows /= np.linalg.norm(rows, axis=1, keepdims=True)
     mt = np.ascontiguousarray(rows.T)
-    mq, scales = quantize_matrix_t(mt)
+    mq, scales = quantize_rows(mt.T)
     q = rng.standard_normal((3, d)).astype(np.float32)
     q /= np.linalg.norm(q, axis=1, keepdims=True)
 
@@ -535,7 +514,7 @@ def test_sharded_int8_rerank_matches_full_precision(mesh8):
 def test_sharded_int8_rerank_ragged_and_k_exceeds_shard(mesh8):
     """Padded rows must not leak and k > shard_rows must not crash."""
     from tpuclip.ops.topk import pad_matrix_t
-    from tpuclip.ops.topk_int8 import quantize_matrix_t
+    from tpuclip.ops.topk_int8 import quantize_rows
     from tpuclip.parallel.sharded_search import sharded_topk_int8_rerank
 
     rng = np.random.default_rng(12)
@@ -543,7 +522,7 @@ def test_sharded_int8_rerank_ragged_and_k_exceeds_shard(mesh8):
     rows = rng.standard_normal((n, d)).astype(np.float32)
     rows /= np.linalg.norm(rows, axis=1, keepdims=True)
     mt, nv = pad_matrix_t(np.ascontiguousarray(rows.T), tile_n=8)
-    mq, scales = quantize_matrix_t(mt)
+    mq, scales = quantize_rows(mt.T)
     rows_pad = np.pad(rows, ((0, mt.shape[1] - n), (0, 0)))
     q = rng.standard_normal((1, d)).astype(np.float32)
 
@@ -608,7 +587,7 @@ def test_sharded_int8_rerank_all_negative_scores_with_padding(mesh8):
     shortlist (review finding: the scan needs the shard-local n_valid, not
     just the post-hoc invalid mask)."""
     from tpuclip.ops.topk import pad_matrix_t
-    from tpuclip.ops.topk_int8 import quantize_matrix_t
+    from tpuclip.ops.topk_int8 import quantize_rows
     from tpuclip.parallel.sharded_search import sharded_topk_int8_rerank
 
     rng = np.random.default_rng(21)
@@ -627,7 +606,7 @@ def test_sharded_int8_rerank_all_negative_scores_with_padding(mesh8):
     best[j] = 1.0
     rows[99] = best
     mt, nv = pad_matrix_t(np.ascontiguousarray(rows.T), tile_n=16)
-    mq, scales = quantize_matrix_t(mt)
+    mq, scales = quantize_rows(mt.T)
     rows_pad = np.pad(rows, ((0, mt.shape[1] - n), (0, 0)))
     assert mt.shape[1] == 112 and mt.shape[1] > n
     exact = rows @ q[0]
@@ -653,11 +632,8 @@ def test_sharded_int8_rerank_shape_boundary_fuzz(mesh8):
     import random
 
     from tpuclip.ops.topk import pad_matrix_t
-    from tpuclip.ops.topk_int8 import quantize_matrix_t
-    from tpuclip.parallel.sharded_search import (
-        shard_matrix,
-        sharded_topk_int8_rerank,
-    )
+    from tpuclip.ops.topk_int8 import quantize_rows
+    from tpuclip.parallel.sharded_search import sharded_topk_int8_rerank
 
     ndev = mesh8.shape[DATA_AXIS]
     rng_py = random.Random(23)
@@ -669,8 +645,10 @@ def test_sharded_int8_rerank_shape_boundary_fuzz(mesh8):
         rows = rng.standard_normal((n, d)).astype(np.float32)
         rows /= np.linalg.norm(rows, axis=1, keepdims=True)
         mt, nv = pad_matrix_t(np.ascontiguousarray(rows.T), tile_n=2048 * ndev)
-        q8, scales = quantize_matrix_t(mt)
-        matrix = shard_matrix(jnp.asarray(q8), mesh8)
+        q8, scales = quantize_rows(mt.T)
+        matrix = jax.device_put(
+            jnp.asarray(q8), NamedSharding(mesh8, P(DATA_AXIS, None))
+        )
         scales_d = jax.device_put(
             jnp.asarray(scales), NamedSharding(mesh8, P(DATA_AXIS))
         )
@@ -695,15 +673,12 @@ def test_sharded_int8_rerank_shape_boundary_fuzz(mesh8):
             )
 
 
-def test_sharded_grouped_binary_topk_matches_single_device(mesh8):
-    """Exact mesh binary top-k over the per-shard GROUPED layout (the mesh
+def test_sharded_binary_topk_masked_matches_single_device(mesh8):
+    """Exact mesh binary top-k over row-sharded packed words (the mesh
     cascade's resident form) == single-device scan, ragged rows and folder
     masks included."""
     from tpuclip.ops.hamming import binary_topk_packed, pack_bits_to_words
-    from tpuclip.parallel.sharded_search import (
-        shard_words_grouped,
-        sharded_binary_topk_grouped,
-    )
+    from tpuclip.parallel.sharded_search import sharded_binary_topk
 
     rng = np.random.default_rng(13)
     n, d, k = 301, 128, 9
@@ -711,47 +686,35 @@ def test_sharded_grouped_binary_topk_matches_single_device(mesh8):
     qbits = (rng.standard_normal((2, d)) >= 0).astype(np.uint8)
     words = pack_bits_to_words(bits)
     qwords = pack_bits_to_words(qbits)
-
-    grouped, rps, nv = shard_words_grouped(words, mesh8, tile_n=64)
-    assert nv == n
+    padded = np.pad(words, ((0, (-n) % 8), (0, 0)))
+    nv = jnp.asarray(n, jnp.int32)
 
     ref_s, ref_i = binary_topk_packed(jnp.asarray(qwords), jnp.asarray(words), k)
-    s, i = sharded_binary_topk_grouped(
-        jnp.asarray(qwords), grouped, k, mesh8,
-        jnp.asarray(nv, jnp.int32), rps,
-    )
+    s, i = sharded_binary_topk(jnp.asarray(qwords), jnp.asarray(padded), k, mesh8, nv)
     np.testing.assert_array_equal(np.asarray(s), np.asarray(ref_s))
     np.testing.assert_array_equal(np.asarray(i), np.asarray(ref_i))
 
     # folder mask over the global padded width
-    padded_n = grouped.shape[0] * rps
-    mask = np.zeros((padded_n,), np.float32)
+    mask = np.zeros((padded.shape[0],), np.float32)
     mask[::2] = -np.inf
     ref_ms, ref_mi = binary_topk_packed(
         jnp.asarray(qwords), jnp.asarray(words), k,
         mask=jnp.asarray(mask[:n]),
     )
-    ms, mi = sharded_binary_topk_grouped(
-        jnp.asarray(qwords), grouped, k, mesh8,
-        jnp.asarray(nv, jnp.int32), rps, mask=jnp.asarray(mask),
+    ms, mi = sharded_binary_topk(
+        jnp.asarray(qwords), jnp.asarray(padded), k, mesh8, nv,
+        mask=jnp.asarray(mask),
     )
     np.testing.assert_array_equal(np.asarray(ms), np.asarray(ref_ms))
     np.testing.assert_array_equal(np.asarray(mi), np.asarray(ref_mi))
 
 
-def test_sharded_binary_shortlist_matches_single_device(mesh8):
-    """Mesh scores-kernel shortlist at full depth returns exactly the valid
-    rows with exact scores, in (score desc, idx asc) order — parity with the
-    single-device binary_shortlist_q1."""
-    from tpuclip.ops.hamming import (
-        binary_shortlist_q1,
-        pack_bits_to_words,
-        pad_words_grouped,
-    )
-    from tpuclip.parallel.sharded_search import (
-        shard_words_grouped,
-        sharded_binary_shortlist,
-    )
+def test_sharded_binary_full_depth_matches_single_device(mesh8):
+    """The mesh cascade prefilter at full depth returns exactly the valid
+    rows with exact scores, in (score desc, idx asc) order — parity with
+    the single-device scan."""
+    from tpuclip.ops.hamming import binary_topk_packed, pack_bits_to_words
+    from tpuclip.parallel.sharded_search import sharded_binary_topk
 
     rng = np.random.default_rng(14)
     n, d = 300, 128
@@ -760,27 +723,22 @@ def test_sharded_binary_shortlist_matches_single_device(mesh8):
         (rng.standard_normal((1, d)) >= 0).astype(np.uint8)
     )
     words = pack_bits_to_words(bits)
+    padded = np.pad(words, ((0, (-n) % 8), (0, 0)))
 
-    grouped, rps, nv = shard_words_grouped(words, mesh8, tile_n=64)
     m = n  # full depth: exact content guaranteed
-    s, i = sharded_binary_shortlist(
-        jnp.asarray(qwords), grouped, m, mesh8,
-        jnp.asarray(nv, jnp.int32), rps, interpret=True,
+    s, i = sharded_binary_topk(
+        jnp.asarray(qwords), jnp.asarray(padded), m, mesh8,
+        jnp.asarray(n, jnp.int32),
     )
-    wg, nv1 = pad_words_grouped(words, tile_n=64)
-    ref_s, ref_i = binary_shortlist_q1(
-        jnp.asarray(qwords), jnp.asarray(wg), m,
-        n_valid=jnp.asarray(nv1, jnp.int32), tile_n=64, interpret=True,
-    )
+    ref_s, ref_i = binary_topk_packed(jnp.asarray(qwords), jnp.asarray(words), m)
     np.testing.assert_array_equal(np.asarray(s), np.asarray(ref_s))
     np.testing.assert_array_equal(np.asarray(i), np.asarray(ref_i))
 
 
 def test_mesh_cascade_device_index(mesh8, tmp_path, monkeypatch):
     """DeviceIndex(mesh=...) in cascade mode: no flat matrix resident
-    (per-chip HBM = packed bits only), results identical to the exact
-    single-device search at full depth, folder filters included — both the
-    exact sharded prefilter (auto on CPU) and the scores one (=scores)."""
+    (per-device memory = packed bits only), results identical to the exact
+    single-device search at full depth, folder filters included."""
     import sqlite3
 
     from tpuclip.index.search import DeviceIndex
@@ -808,20 +766,17 @@ def test_mesh_cascade_device_index(mesh8, tmp_path, monkeypatch):
 
     monkeypatch.setenv("TPUCLIP_SEARCH_MODE", "cascade")
     monkeypatch.setenv("TPUCLIP_CASCADE_DEPTH", str(n))
-    for prefilter in ("auto", "scores"):
-        monkeypatch.setenv("TPUCLIP_CASCADE_PREFILTER", prefilter)
-        casc = DeviceIndex(store, mesh=mesh8)
-        casc.refresh()
-        assert casc._cascade and casc._matrix is None
-        assert casc._bin_layout == "grouped_sharded"
-        got = casc.search(q, k)
-        want = exact.search(q, k)
-        assert [p for p, _ in got] == [p for p, _ in want], prefilter
-        np.testing.assert_allclose(
-            [s for _, s in got], [s for _, s in want], rtol=1e-5
-        )
-        # folder filter rides the masked sharded exact prefilter
-        fg = casc.search(q, k, filter_folders=["/data/a"])
-        fw = exact.search(q, k, filter_folders=["/data/a"])
-        assert [p for p, _ in fg] == [p for p, _ in fw], prefilter
-        assert all("/data/a/" in p for p, _ in fg)
+    casc = DeviceIndex(store, mesh=mesh8)
+    casc.refresh()
+    assert casc._cascade and casc._matrix is None
+    got = casc.search(q, k)
+    want = exact.search(q, k)
+    assert [p for p, _ in got] == [p for p, _ in want]
+    np.testing.assert_allclose(
+        [s for _, s in got], [s for _, s in want], rtol=1e-5
+    )
+    # folder filter rides the masked sharded exact prefilter
+    fg = casc.search(q, k, filter_folders=["/data/a"])
+    fw = exact.search(q, k, filter_folders=["/data/a"])
+    assert [p for p, _ in fg] == [p for p, _ in fw]
+    assert all("/data/a/" in p for p, _ in fg)

@@ -14,7 +14,6 @@ transformers = pytest.importorskip("transformers")
 
 import jax  # noqa: E402
 
-from conftest import ON_DEVICE  # noqa: E402
 import jax.numpy as jnp  # noqa: E402
 
 from tpuclip.models import configs as C  # noqa: E402
@@ -103,13 +102,8 @@ def test_image_features_parity(models):
     )
     ours = np.asarray(ours)
     assert ours.shape == ref.shape
-    if ON_DEVICE:
-        # device f32 matmuls use reduced internal precision; the BASELINE
-        # north star (cos >= 0.999 vs the torch oracle) is the contract here
-        assert _cos(ours, ref) > 0.999
-    else:
-        assert _cos(ours, ref) > 0.99999
-        np.testing.assert_allclose(ours, ref, rtol=2e-4, atol=2e-4)
+    assert _cos(ours, ref) > 0.99999
+    np.testing.assert_allclose(ours, ref, rtol=2e-4, atol=2e-4)
 
 
 def test_text_features_parity(models):
@@ -122,11 +116,8 @@ def test_text_features_parity(models):
         siglip.text_forward(params["text"], jnp.asarray(ids), cfg.text)
     )
     assert ours.shape == ref.shape
-    if ON_DEVICE:
-        assert _cos(ours, ref) > 0.999
-    else:
-        assert _cos(ours, ref) > 0.99999
-        np.testing.assert_allclose(ours, ref, rtol=2e-4, atol=2e-4)
+    assert _cos(ours, ref) > 0.99999
+    np.testing.assert_allclose(ours, ref, rtol=2e-4, atol=2e-4)
 
 
 def test_text_features_parity_with_attention_mask(models):
@@ -150,11 +141,8 @@ def test_text_features_parity_with_attention_mask(models):
             attention_mask=jnp.asarray(mask),
         )
     )
-    if ON_DEVICE:
-        assert _cos(ours, ref) > 0.999
-    else:
-        assert _cos(ours, ref) > 0.99999
-        np.testing.assert_allclose(ours, ref, rtol=2e-4, atol=2e-4)
+    assert _cos(ours, ref) > 0.99999
+    np.testing.assert_allclose(ours, ref, rtol=2e-4, atol=2e-4)
     # and masking must actually change the result vs unmasked
     unmasked = np.asarray(siglip.text_forward(params["text"], jnp.asarray(ids), cfg.text))
     assert _cos(ours[:2], unmasked[:2]) < 0.9999
@@ -168,11 +156,8 @@ def test_uint8_pixel_normalization(models):
     normalized = (raw.astype(np.float32) / 255.0 - 0.5) / 0.5
     out_u8 = np.asarray(siglip.vision_forward(params["vision"], jnp.asarray(raw), cfg.vision))
     out_f32 = np.asarray(siglip.vision_forward(params["vision"], jnp.asarray(normalized), cfg.vision))
-    # Two separately-compiled programs: on the real device their f32
-    # contractions run default-precision bf16 passes with different fusion
-    # choices, so the pooled outputs drift ~1e-2 abs (measured 8e-3 on
-    # v5e); on CPU both are IEEE f32.
-    tol = 2e-2 if ON_DEVICE else 1e-5
+    # Two separately-compiled programs; on the CPU both are IEEE f32.
+    tol = 1e-5
     np.testing.assert_allclose(out_u8, out_f32, rtol=tol, atol=tol)
 
 
@@ -272,8 +257,8 @@ def test_sigmoid_contrastive_loss_vs_hf(models):
                 cfg,
                 jnp.float32,
             )
-        rel_l = 2e-4 if ON_DEVICE else 1e-5
-        rel_g = 2e-3 if ON_DEVICE else 1e-4
+        rel_l = 1e-5
+        rel_g = 1e-4
         assert float(loss) == pytest.approx(want_loss, rel=rel_l), trial
-        assert float(grads["logit_scale"]) == pytest.approx(want_gs, rel=rel_g, abs=1e-6 if ON_DEVICE else 1e-7)
-        assert float(grads["logit_bias"]) == pytest.approx(want_gb, rel=rel_g, abs=1e-6 if ON_DEVICE else 1e-7)
+        assert float(grads["logit_scale"]) == pytest.approx(want_gs, rel=rel_g, abs=1e-7)
+        assert float(grads["logit_bias"]) == pytest.approx(want_gb, rel=rel_g, abs=1e-7)

@@ -26,14 +26,11 @@ transformers = pytest.importorskip("transformers")
 
 import jax.numpy as jnp  # noqa: E402
 
-from conftest import cpu_only  # noqa: E402
-
 from tpuclip.models import siglip  # noqa: E402
 from tpuclip.models.configs import get_config  # noqa: E402
 from tpuclip.models.convert import params_from_state_dict  # noqa: E402
 
 pytestmark = [
-    cpu_only,
     pytest.mark.skipif(
         os.environ.get("TPUCLIP_FULL_PARITY") != "1",
         reason="full-SO400M-shape gate; opt in with TPUCLIP_FULL_PARITY=1",

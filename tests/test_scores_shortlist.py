@@ -1,12 +1,10 @@
-"""Scores-materializing shortlist methods for the fused int8 path.
+"""Shortlist methods for the fused int8 path (ops/topk_int8.py).
 
-Round-3 redesign (ops/topk_int8.py): the scan kernel can emit raw f32
-scores, with the shortlist built OUTSIDE the kernel — "verified"
-(approx_max_k + count-proof + host fallback), "approx" (unverified
-opt-in), "exact" (lax.top_k) — instead of the in-kernel per-tile
-extraction ("extract"). On CPU approx_max_k reduces to exact top_k, so
-every method must agree exactly; the verify/fallback logic is exercised
-directly.
+The scan emits raw f32 scores and the shortlist is built from them:
+"exact" (lax.top_k, the default), "approx" (approx_max_k) or "verified"
+(approx_max_k + count-proof + host fallback). On CPU (and on the GPU)
+approx_max_k reduces to exact top_k, so every method must agree exactly;
+the verify/fallback logic is exercised directly.
 """
 
 import numpy as np
@@ -37,10 +35,10 @@ def test_methods_match_extract(method):
     rng = np.random.default_rng(1)
     q = jnp.asarray(rng.standard_normal((1, 96)).astype(np.float32))
     s0, i0 = ti.topk_int8_rerank_fused(
-        q, mt, sc, rowsd, 12, n_valid=nv, use_pallas=False
+        q, mt, sc, rowsd, 12, n_valid=nv
     )
     out = ti.topk_int8_rerank_fused(
-        q, mt, sc, rowsd, 12, n_valid=nv, use_pallas=False,
+        q, mt, sc, rowsd, 12, n_valid=nv,
         shortlist_method=method,
     )
     if method == "verified":
@@ -58,10 +56,10 @@ def test_batch_agreement(method):
     rng = np.random.default_rng(4)
     q = jnp.asarray(rng.standard_normal((5, 64)).astype(np.float32))
     s0, i0 = ti.topk_int8_rerank_fused(
-        q, mt, sc, rowsd, 7, n_valid=nv, use_pallas=False
+        q, mt, sc, rowsd, 7, n_valid=nv
     )
     out = ti.topk_int8_rerank_fused(
-        q, mt, sc, rowsd, 7, n_valid=nv, use_pallas=False,
+        q, mt, sc, rowsd, 7, n_valid=nv,
         shortlist_method=method,
     )
     s1, i1 = out[:2]
@@ -80,7 +78,7 @@ def test_tie_contract_lowest_indices(method):
     # Plant the duplicates AFTER the global normalize so all 301 rows are
     # byte-identical: copying the pre-normalized vector leaves row 11 one
     # extra division away from the dups (~1 ulp), which is enough to break
-    # the tie on the TPU backend's scale fold — and is not the contract
+    # the tie on a backend's scale fold — and is not the contract
     # under test.
     dup_idx = np.arange(17, 17 + dup * 9, 9)
     winner = rows[11]
@@ -90,8 +88,7 @@ def test_tie_contract_lowest_indices(method):
     mt, sc = ti.derive_int8_matrix_device(rowsd, n_pad)
     q = jnp.asarray(winner[None, :], jnp.float32)
     out = ti.topk_int8_rerank_fused(
-        q, mt, sc, rowsd, 20, n_valid=jnp.asarray(n, jnp.int32),
-        use_pallas=False, shortlist_method=method,
+        q, mt, sc, rowsd, 20, n_valid=jnp.asarray(n, jnp.int32), shortlist_method=method,
     )
     got = np.sort(np.asarray(out[1])[0])
     expect = np.sort(np.sort(np.concatenate([[11], dup_idx]))[:20])
@@ -119,15 +116,15 @@ def test_verified_shortlist_detects_planted_miss():
 def test_auto_wrapper_fallback_path(monkeypatch):
     """Force the verified program to report a miss: the auto wrapper must
     recover via the RESIDENT-SCORES fallback (exact top_k over the score
-    matrix the fused program already materialized — r3.7: no second scan)
+    matrix the fused program already materialized — no second scan)
     and still return the exact results."""
     rows, rowsd, mt, sc, nv = _index(n=1700, d=80, seed=7)
     rng = np.random.default_rng(8)
     q = jnp.asarray(rng.standard_normal((1, 80)).astype(np.float32))
     s0, i0 = ti.topk_int8_rerank_fused(
-        q, mt, sc, rowsd, 9, n_valid=nv, use_pallas=False
+        q, mt, sc, rowsd, 9, n_valid=nv
     )
-    monkeypatch.setenv("TPUCLIP_SHORTLIST", "auto")
+    monkeypatch.setenv("TPUCLIP_SHORTLIST", "verified")
 
     real_fused = ti.topk_int8_rerank_fused
     real_from_scores = ti.topk_exact_from_scores
@@ -146,10 +143,9 @@ def test_auto_wrapper_fallback_path(monkeypatch):
 
     monkeypatch.setattr(ti, "topk_int8_rerank_fused", spy)
     monkeypatch.setattr(ti, "topk_exact_from_scores", spy_from_scores)
-    # use_pallas=True so the policy resolves to "verified" (q=1, "TPU")
     stats = {}
     s1, i1 = ti.topk_int8_rerank_fused_auto(
-        q, mt, sc, rowsd, 9, n_valid=nv, use_pallas=True, stats=stats
+        q, mt, sc, rowsd, 9, n_valid=nv, stats=stats
     )
     assert calls == ["verified", "from_scores"]
     assert stats == {"verified_queries": 1, "shortlist_fallbacks": 1}
@@ -165,13 +161,13 @@ def test_topk_exact_from_scores_matches_fused():
     q = jnp.asarray(rng.standard_normal((1, 72)).astype(np.float32))
     k = 13
     s0, i0 = ti.topk_int8_rerank_fused(
-        q, mt, sc, rowsd, k, n_valid=nv, use_pallas=False
+        q, mt, sc, rowsd, k, n_valid=nv
     )
     s, i, ok, scores_res = ti.topk_int8_rerank_fused(
-        q, mt, sc, rowsd, k, n_valid=nv, use_pallas=False,
+        q, mt, sc, rowsd, k, n_valid=nv,
         shortlist_method="verified", keep_scores=True,
     )
-    assert scores_res.shape == (1, mt.shape[1])
+    assert scores_res.shape == (1, mt.shape[0])
     n = scores_res.shape[1]
     m = min(max(512, 4 * min(k, n)), n)
     s1, i1 = ti.topk_exact_from_scores(scores_res, q, rowsd, k, m)
@@ -188,7 +184,7 @@ def test_keep_scores_masks_invalid_rows():
     rng = np.random.default_rng(24)
     q = jnp.asarray(rng.standard_normal((1, 48)).astype(np.float32))
     _, _, _, scores_res = ti.topk_int8_rerank_fused(
-        q, mt, sc, rowsd, 10, n_valid=nv, use_pallas=False,
+        q, mt, sc, rowsd, 10, n_valid=nv,
         shortlist_method="verified", keep_scores=True,
     )
     arr = np.asarray(scores_res)
@@ -200,14 +196,16 @@ def test_keep_scores_masks_invalid_rows():
 
 
 def test_env_override_forces_method(monkeypatch):
-    monkeypatch.setenv("TPUCLIP_SHORTLIST", "extract")
-    assert ti.resolve_shortlist_method(1, True) == "extract"
+    monkeypatch.setenv("TPUCLIP_SHORTLIST", "verified")
+    assert ti.resolve_shortlist_method() == "verified"
     monkeypatch.setenv("TPUCLIP_SHORTLIST", "approx")
-    assert ti.resolve_shortlist_method(64, True) == "approx"
+    assert ti.resolve_shortlist_method() == "approx"
+    monkeypatch.setenv("TPUCLIP_SHORTLIST", "extract")  # a removed method
+    with pytest.raises(ValueError):
+        ti.resolve_shortlist_method()
     monkeypatch.delenv("TPUCLIP_SHORTLIST")
-    assert ti.resolve_shortlist_method(1, True) == "verified"
-    assert ti.resolve_shortlist_method(2, True) == "extract"
-    assert ti.resolve_shortlist_method(1, False) == "extract"
+    assert ti.resolve_shortlist_method() == "exact"
+    assert ti.resolve_shortlist_method() == "exact"
 
 
 @pytest.mark.parametrize("n,k", [(3, 5), (511, 20), (513, 128)])
@@ -217,10 +215,10 @@ def test_edge_shapes(n, k):
     rng = np.random.default_rng(9)
     q = jnp.asarray(rng.standard_normal((1, 32)).astype(np.float32))
     s0, i0 = ti.topk_int8_rerank_fused(
-        q, mt, sc, rowsd, k, n_valid=nv, use_pallas=False
+        q, mt, sc, rowsd, k, n_valid=nv
     )
     s1, i1, ok = ti.topk_int8_rerank_fused(
-        q, mt, sc, rowsd, k, n_valid=nv, use_pallas=False,
+        q, mt, sc, rowsd, k, n_valid=nv,
         shortlist_method="verified",
     )
     assert bool(np.asarray(ok))
@@ -232,10 +230,10 @@ def test_bf16_rows_verified_matches_extract():
     rng = np.random.default_rng(13)
     q = jnp.asarray(rng.standard_normal((1, 64)).astype(np.float32))
     s0, i0 = ti.topk_int8_rerank_fused(
-        q, mt, sc, rowsd, 15, n_valid=nv, use_pallas=False
+        q, mt, sc, rowsd, 15, n_valid=nv
     )
     s1, i1, ok = ti.topk_int8_rerank_fused(
-        q, mt, sc, rowsd, 15, n_valid=nv, use_pallas=False,
+        q, mt, sc, rowsd, 15, n_valid=nv,
         shortlist_method="verified",
     )
     assert bool(np.asarray(ok))
@@ -245,18 +243,17 @@ def test_bf16_rows_verified_matches_extract():
 
 @pytest.mark.parametrize("recall", [0.9, 0.999])
 def test_shortlist_recall_static_arg(recall):
-    """`shortlist_recall` (new in r3.6: the approx_max_k recall target is a
-    sweepable static arg, probed in scripts/probe_verified_config.py) must
-    retrace per value and leave CPU results exact regardless of target
+    """`shortlist_recall` (the approx_max_k recall target, a static arg)
+    must retrace per value and leave CPU results exact regardless of target
     (CPU approx_max_k reduces to exact top_k)."""
     rows, rowsd, mt, sc, nv = _index(n=1300, d=64, seed=9)
     rng = np.random.default_rng(10)
     q = jnp.asarray(rng.standard_normal((1, 64)).astype(np.float32))
     s0, i0 = ti.topk_int8_rerank_fused(
-        q, mt, sc, rowsd, 9, n_valid=nv, use_pallas=False
+        q, mt, sc, rowsd, 9, n_valid=nv
     )
     s1, i1, ok = ti.topk_int8_rerank_fused(
-        q, mt, sc, rowsd, 9, n_valid=nv, use_pallas=False,
+        q, mt, sc, rowsd, 9, n_valid=nv,
         shortlist_method="verified", shortlist_recall=recall,
     )
     assert bool(np.asarray(ok))

@@ -66,7 +66,8 @@ def test_stats(server):
     assert body["images"] == 3
     assert body["full_embeddings"] == 3
     assert body["embedding_dim"] == 64
-    # verified-shortlist health counters are always exported (zeros off-TPU)
+    # verified-shortlist health counters are always exported (zeros unless
+    # TPUCLIP_SHORTLIST=verified)
     assert isinstance(body["verified_queries"], int)
     assert isinstance(body["shortlist_fallbacks"], int)
 

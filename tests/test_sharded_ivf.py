@@ -202,8 +202,7 @@ def test_device_index_mesh_ivf_mode(mesh8, tmp_path, monkeypatch):
 def test_bf16_rows_match_flat_rescore_contract(mesh8):
     """With bf16 embedded rows the rescore must reproduce the flat fused
     path's scores (bit-rounded query) for the rows both return."""
-    from tpuclip.ops.topk import pad_matrix_t
-    from tpuclip.ops.topk_int8 import quantize_matrix_t, topk_int8_rerank_fused
+    from tpuclip.ops.topk_int8 import pad_rows, quantize_rows, topk_int8_rerank_fused
 
     n, d, k = 768, 64, 8
     x, centers = _clustered(n, d, modes=8, seed=9)
@@ -218,11 +217,11 @@ def test_bf16_rows_match_flat_rescore_contract(mesh8):
     sharded = shard_ivf(index, rows_bf16, mesh8)
     s_ivf, i_ivf = sharded_ivf_search(sharded, q, k, nprobe=12)
 
-    mt, nv = pad_matrix_t(x.T.copy(), tile_n=256)
-    mq, scales = quantize_matrix_t(mt)
+    padded, nv = pad_rows(x, tile_n=256)
+    mq, scales = quantize_rows(padded)
     s_flat, i_flat = topk_int8_rerank_fused(
         jnp.asarray(q), jnp.asarray(mq), jnp.asarray(scales), rows_bf16, k,
-        n_valid=jnp.asarray(nv, jnp.int32), use_pallas=False,
+        n_valid=jnp.asarray(nv, jnp.int32),
     )
     np.testing.assert_array_equal(np.asarray(i_ivf), np.asarray(i_flat))
     np.testing.assert_allclose(

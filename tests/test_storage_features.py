@@ -147,15 +147,15 @@ def test_int8_storage_requantizes_bit_identically(tmp_path, vecs):
     """The load-time int8 derivation over an int8-stored DB must reproduce
     the EXACT same int8 matrix + scales as over an fp32-stored DB — int8
     storage then cannot change any int8-scan search result."""
-    from tpuclip.ops.topk_int8 import quantize_matrix_t
+    from tpuclip.ops.topk_int8 import quantize_rows
 
     s8 = MetadataStore(str(tmp_path / "rq.db"), embedding_dim=DIM, vector_dtype="int8")
     s8.init_schema(verbose=False)
     _commit(s8, vecs)
     (ids, dequant), = list(s8.iter_embeddings())
 
-    q_from_fp32, scales_from_fp32 = quantize_matrix_t(vecs.T)
-    q_from_int8, scales_from_int8 = quantize_matrix_t(dequant.T)
+    q_from_fp32, scales_from_fp32 = quantize_rows(vecs)
+    q_from_int8, scales_from_int8 = quantize_rows(dequant)
     np.testing.assert_array_equal(q_from_int8, q_from_fp32)
     np.testing.assert_allclose(scales_from_int8, scales_from_fp32, rtol=1e-6)
 

@@ -1,4 +1,5 @@
-"""Kernel tests: fused matmul+top-k vs a numpy oracle (SURVEY.md §4.2)."""
+"""Top-k tests: matmul+top-k and packed-binary top-k vs numpy oracles
+(SURVEY.md §4.2)."""
 
 import numpy as np
 import pytest
@@ -8,7 +9,7 @@ import jax
 from conftest import assert_topk_oracle
 import jax.numpy as jnp
 
-from tpuclip.ops.topk import cosine_topk, topk_pallas, topk_xla
+from tpuclip.ops.topk import cosine_topk, pad_matrix_t, topk_xla
 
 
 def _oracle(queries, matrix, k, mask=None):
@@ -47,24 +48,27 @@ def test_topk_xla_with_mask():
 
 
 @pytest.mark.parametrize("n,k,qn", [(512, 10, 1), (2048, 20, 3), (3000, 5, 8), (700, 13, 2)])
-def test_topk_pallas_interpret_matches_oracle(n, k, qn):
-    """Pallas kernel in interpreter mode (CPU) vs oracle, incl. ragged N."""
+def test_cosine_topk_padded_matrix_matches_oracle(n, k, qn):
+    """The resident layout: (D, N) zero-padded to a tile multiple, masked
+    past n_valid — padding columns (score 0) must never evict real
+    negative-scoring rows, ragged N included."""
     rng = np.random.default_rng(2)
     q = rng.standard_normal((qn, 128)).astype(np.float32)
     m = rng.standard_normal((n, 128)).astype(np.float32)
-    s, i = topk_pallas(jnp.asarray(q), jnp.asarray(m.T), k, tile_n=512, interpret=True)
+    mt, nv = pad_matrix_t(np.ascontiguousarray(m.T), tile_n=512)
+    s, i = cosine_topk(jnp.asarray(q), jnp.asarray(mt), k, n_valid=jnp.asarray(nv, jnp.int32))
     es, ei = _oracle(q, m, k)
     assert_topk_oracle(i, ei, s, es)
 
 
-def test_topk_pallas_duplicate_scores_tiebreak():
+def test_cosine_topk_duplicate_scores_tiebreak():
     """Duplicate vectors must resolve ties to the lowest index, like a stable
     ORDER BY scan (image_database.py:1572)."""
     rng = np.random.default_rng(3)
     base = rng.standard_normal((4, 64)).astype(np.float32)
     m = np.tile(base, (64, 1))  # 256 rows, every score appears 64 times
     q = base[:1]
-    s, i = topk_pallas(jnp.asarray(q), jnp.asarray(m.T), 8, tile_n=256, interpret=True)
+    s, i = cosine_topk(jnp.asarray(q), jnp.asarray(m.T), 8)
     es, ei = _oracle(q, m, 8)
     np.testing.assert_array_equal(np.asarray(i), ei)
 
@@ -87,17 +91,30 @@ def test_empty_matrix():
 
 
 # ---------------------------------------------------------------------------
-# Packed-binary streaming kernel (word-major layout)
+# Packed-binary top-k (row layout, (N, W) uint32 words)
 # ---------------------------------------------------------------------------
 
 
-def test_binary_topk_pallas_matches_oracle_interpret():
-    from tpuclip.ops.hamming import (
-        binary_topk_packed,
-        binary_topk_packed_pallas,
-        pack_bits_to_words,
-        pad_words_t,
-    )
+def _binary_oracle(words, qwords, k, mask=None):
+    """Integer-exact popcount(q & row) top-k, ties to the lowest index."""
+    bits = np.unpackbits(
+        np.ascontiguousarray(words).view(np.uint8), axis=1
+    ).astype(np.int32)
+    qbits = np.unpackbits(
+        np.ascontiguousarray(qwords).view(np.uint8), axis=1
+    ).astype(np.int32)
+    scores = qbits @ bits.T
+    out_s, out_i = [], []
+    for row in scores:
+        valid = np.arange(len(row)) if mask is None else np.nonzero(mask == 0)[0]
+        order = valid[np.lexsort((valid, -row[valid]))][:k]
+        out_s.append(row[order])
+        out_i.append(order)
+    return np.asarray(out_s), np.asarray(out_i)
+
+
+def test_binary_topk_packed_matches_oracle():
+    from tpuclip.ops.hamming import binary_topk_packed, pack_bits_to_words
 
     rng = np.random.default_rng(31)
     n, d, k = 5000, 1152, 20
@@ -105,24 +122,14 @@ def test_binary_topk_pallas_matches_oracle_interpret():
     qbits = (rng.standard_normal((3, d)) >= 0).astype(np.uint8)
     words = pack_bits_to_words(bits)
     qwords = pack_bits_to_words(qbits)
-    ref_s, ref_i = binary_topk_packed(jnp.asarray(qwords), jnp.asarray(words), k)
-
-    wt, nv = pad_words_t(words, tile_n=1024)
-    got_s, got_i = binary_topk_packed_pallas(
-        jnp.asarray(qwords), jnp.asarray(wt), k,
-        n_valid=jnp.asarray(nv, jnp.int32), tile_n=1024, interpret=True,
-    )
-    np.testing.assert_array_equal(np.asarray(got_s), np.asarray(ref_s))
-    np.testing.assert_array_equal(np.asarray(got_i), np.asarray(ref_i))
+    got_s, got_i = binary_topk_packed(jnp.asarray(qwords), jnp.asarray(words), k)
+    ref_s, ref_i = _binary_oracle(words, qwords, k)
+    np.testing.assert_array_equal(np.asarray(got_s), ref_s)
+    np.testing.assert_array_equal(np.asarray(got_i), ref_i)
 
 
-def test_binary_topk_packed_t_matches_oracle():
-    from tpuclip.ops.hamming import (
-        binary_topk_packed,
-        binary_topk_packed_t,
-        pack_bits_to_words,
-        pad_words_t,
-    )
+def test_binary_topk_packed_masked_matches_oracle():
+    from tpuclip.ops.hamming import binary_topk_packed, pack_bits_to_words
 
     rng = np.random.default_rng(33)
     n, d, k = 777, 128, 9
@@ -131,18 +138,12 @@ def test_binary_topk_packed_t_matches_oracle():
     words = pack_bits_to_words(bits)
     qwords = pack_bits_to_words(qbits)
     mask = np.where(np.arange(n) % 3 == 0, -np.inf, 0.0).astype(np.float32)
-    ref_s, ref_i = binary_topk_packed(
+    got_s, got_i = binary_topk_packed(
         jnp.asarray(qwords), jnp.asarray(words), k, mask=jnp.asarray(mask)
     )
-    wt, nv = pad_words_t(words, tile_n=256)
-    padded_mask = np.full((wt.shape[1],), -np.inf, np.float32)
-    padded_mask[:n] = mask
-    got_s, got_i = binary_topk_packed_t(
-        jnp.asarray(qwords), jnp.asarray(wt), k,
-        mask=jnp.asarray(padded_mask), n_valid=jnp.asarray(nv, jnp.int32),
-    )
-    np.testing.assert_array_equal(np.asarray(got_s), np.asarray(ref_s))
-    np.testing.assert_array_equal(np.asarray(got_i), np.asarray(ref_i))
+    ref_s, ref_i = _binary_oracle(words, qwords, k, mask)
+    np.testing.assert_array_equal(np.asarray(got_s), ref_s)
+    np.testing.assert_array_equal(np.asarray(got_i), ref_i)
 
 
 def test_binary_topk_masked_rows_sort_last():
@@ -150,13 +151,7 @@ def test_binary_topk_masked_rows_sort_last():
     rows than k, the INT32_MIN sentinel's negation wrapped in lexsort and
     ranked masked rows FIRST — prefix-truncating consumers returned masked
     rows above real matches. Sentinels must sort last in every binary path."""
-    from tpuclip.ops.hamming import (
-        binary_topk,
-        binary_topk_packed,
-        binary_topk_packed_t,
-        pack_bits_to_words,
-        pad_words_t,
-    )
+    from tpuclip.ops.hamming import binary_topk, binary_topk_packed, pack_bits_to_words
 
     rng = np.random.default_rng(44)
     n, d, k = 40, 64, 8
@@ -187,58 +182,33 @@ def test_binary_topk_masked_rows_sort_last():
     assert set(i[:3].tolist()) == keep
     assert (s[3:] == sentinel).all()
 
-    wt, nv = pad_words_t(words, tile_n=256)
-    padded_mask = np.full((wt.shape[1],), -np.inf, np.float32)
-    padded_mask[:n] = mask
-    s, i = binary_topk_packed_t(
-        jnp.asarray(qwords), jnp.asarray(wt), k,
-        mask=jnp.asarray(padded_mask), n_valid=jnp.asarray(nv, jnp.int32),
-    )
-    s, i = np.asarray(s)[0], np.asarray(i)[0]
-    assert set(i[:3].tolist()) == keep
-    assert (s[3:] == sentinel).all()
 
-
-def test_binary_topk_pallas_tie_ordering_interpret():
+def test_binary_topk_packed_tie_ordering():
     """Popcount scores tie constantly — ties must go to the lowest index."""
-    from tpuclip.ops.hamming import binary_topk_packed_pallas, pad_words_t
+    from tpuclip.ops.hamming import binary_topk_packed
 
     # Every row identical -> every score ties; expect indices 0..k-1.
     words = np.tile(np.array([[0xFFFFFFFF]], np.uint32), (300, 4))
     qwords = np.array([[0xFFFFFFFF] * 4], np.uint32)
-    wt, nv = pad_words_t(words, tile_n=128)
-    s, i = binary_topk_packed_pallas(
-        jnp.asarray(qwords), jnp.asarray(wt), 7,
-        n_valid=jnp.asarray(nv, jnp.int32), tile_n=128, interpret=True,
-    )
+    s, i = binary_topk_packed(jnp.asarray(qwords), jnp.asarray(words), 7)
     np.testing.assert_array_equal(np.asarray(i)[0], np.arange(7))
     np.testing.assert_array_equal(np.asarray(s)[0], np.full(7, 128))
 
 
-def test_binary_topk_q1_grouped_matches_oracle_interpret():
-    """The sublane-grouped single-query kernel must match the row-major
-    oracle exactly, ragged n_valid and tie ordering included."""
-    from tpuclip.ops.hamming import (
-        binary_topk_packed,
-        binary_topk_packed_pallas,
-        pack_bits_to_words,
-        pad_words_t,
-    )
+@pytest.mark.parametrize("n", [5000, 2048, 2049])
+def test_binary_topk_packed_single_query_matches_oracle(n):
+    """The single-query case (the cascade prefilter's), ragged N included."""
+    from tpuclip.ops.hamming import binary_topk_packed, pack_bits_to_words
 
     rng = np.random.default_rng(37)
-    for n in (5000, 2048, 2049):
-        bits = (rng.standard_normal((n, 256)) >= 0).astype(np.uint8)
-        qbits = (rng.standard_normal((1, 256)) >= 0).astype(np.uint8)
-        words = pack_bits_to_words(bits)
-        qwords = pack_bits_to_words(qbits)
-        ref_s, ref_i = binary_topk_packed(jnp.asarray(qwords), jnp.asarray(words), 20)
-        wt, nv = pad_words_t(words, tile_n=1024)
-        got_s, got_i = binary_topk_packed_pallas(
-            jnp.asarray(qwords), jnp.asarray(wt), 20,
-            n_valid=jnp.asarray(nv, jnp.int32), tile_n=1024, interpret=True,
-        )
-        np.testing.assert_array_equal(np.asarray(got_s), np.asarray(ref_s), err_msg=str(n))
-        np.testing.assert_array_equal(np.asarray(got_i), np.asarray(ref_i), err_msg=str(n))
+    bits = (rng.standard_normal((n, 256)) >= 0).astype(np.uint8)
+    qbits = (rng.standard_normal((1, 256)) >= 0).astype(np.uint8)
+    words = pack_bits_to_words(bits)
+    qwords = pack_bits_to_words(qbits)
+    got_s, got_i = binary_topk_packed(jnp.asarray(qwords), jnp.asarray(words), 20)
+    ref_s, ref_i = _binary_oracle(words, qwords, 20)
+    np.testing.assert_array_equal(np.asarray(got_s), ref_s)
+    np.testing.assert_array_equal(np.asarray(got_i), ref_i)
 
 
 def test_pack_bits_to_words_device_matches_host():

@@ -5,13 +5,13 @@ import pytest
 
 import jax.numpy as jnp
 
-from conftest import ON_DEVICE, assert_topk_oracle  # noqa: E402
+from conftest import assert_topk_oracle  # noqa: E402
 from tpuclip.ops.topk import topk_xla
 from tpuclip.ops.topk_int8 import (
-    quantize_matrix_t,
+    pad_rows,
     quantize_query,
-    topk_int8_pallas,
-    topk_int8_xla,
+    quantize_rows,
+    topk_int8_scan,
 )
 
 
@@ -21,19 +21,10 @@ def _unit_rows(rng, n, d):
 
 
 def _assert_paths_scores(got, expected_paths, expected_scores):
-    """fp32-exact on CPU; on the real device the bf16 storage/matmul flips
-    sub-1e-3 near-ties, so assert overlap + loose score closeness there
-    (exactness on hardware is pinned by scripts/tpu_validate.py)."""
-    if not ON_DEVICE:
-        assert [p for p, _ in got] == expected_paths
-        np.testing.assert_allclose(
-            [s for _, s in got], expected_scores, rtol=1e-5, atol=1e-6
-        )
-        return
-    overlap = len({p for p, _ in got} & set(expected_paths)) / len(expected_paths)
-    assert overlap >= 0.9, (got, expected_paths)
+    """fp32-exact ordering and scores (the suite's f32 is IEEE on CPU)."""
+    assert [p for p, _ in got] == expected_paths
     np.testing.assert_allclose(
-        sorted(s for _, s in got), sorted(expected_scores), rtol=5e-3, atol=5e-3
+        [s for _, s in got], expected_scores, rtol=1e-5, atol=1e-6
     )
 
 
@@ -47,10 +38,9 @@ def data():
 
 def test_int8_scores_close_to_exact(data):
     matrix, queries = data
-    mt = matrix.T.copy()
-    mq, scales = quantize_matrix_t(mt)
+    mq, scales = quantize_rows(matrix)
     qi, qs = quantize_query(queries[0:1])
-    s, i = topk_int8_xla(
+    s, i = topk_int8_scan(
         jnp.asarray(qi), jnp.asarray(mq), jnp.asarray(scales), jnp.asarray(qs), 10
     )
     exact = matrix @ queries[0]
@@ -63,12 +53,12 @@ def test_int8_topk_recall(data):
     """recall@20 of the int8 scan vs the exact scan must be ~1."""
     matrix, queries = data
     mt = matrix.T.copy()
-    mq, scales = quantize_matrix_t(mt)
+    mq, scales = quantize_rows(matrix)
     hits = total = 0
     for q in queries:
         _, exact_i = topk_xla(jnp.asarray(q[None]), jnp.asarray(mt), 20)
         qi, qs = quantize_query(q[None])
-        _, int8_i = topk_int8_xla(
+        _, int8_i = topk_int8_scan(
             jnp.asarray(qi), jnp.asarray(mq), jnp.asarray(scales), jnp.asarray(qs), 20
         )
         hits += len(set(np.asarray(exact_i[0])) & set(np.asarray(int8_i[0])))
@@ -76,21 +66,74 @@ def test_int8_topk_recall(data):
     assert hits / total >= 0.95, f"recall@20 = {hits / total}"
 
 
-def test_int8_pallas_matches_xla(data):
-    matrix, queries = data
-    n, d = 4096, 128  # pre-padded size
-    mt = matrix[:n].T.copy()
-    mq, scales = quantize_matrix_t(mt)
-    qi, qs = quantize_query(queries[:2])
-    sp, ip = topk_int8_pallas(
-        jnp.asarray(qi), jnp.asarray(mq), jnp.asarray(scales), jnp.asarray(qs),
-        13, tile_n=1024, interpret=True,
+def _int8_oracle(qi, mq, scales, n_valid):
+    """numpy int32 product, f32 scale fold, -inf past n_valid."""
+    acc = qi.astype(np.int32) @ mq.astype(np.int32).T
+    scores = acc.astype(np.float32) * scales[None, :]
+    scores[:, n_valid:] = -np.inf
+    return scores
+
+
+@pytest.mark.parametrize("q_count", [1, 3, 16, 64])
+@pytest.mark.parametrize(
+    "n,n_valid",
+    [(1024, 1024), (1000, 1000), (2048, 1500)],
+    ids=["tile-multiple", "ragged", "n_valid-lt-n"],
+)
+def test_int8_triton_scan_matches_xla_and_oracle(q_count, n, n_valid):
+    """The Triton int8 scan (interpret mode) is bit-equal to the XLA scan
+    and to a numpy int32 oracle: int32 accumulation is exact, the scale
+    fold is one f32 multiply. Ragged N pads to the tile like the index
+    does; the wrapper pads Q to its block and slices it back."""
+    from tpuclip.ops.topk_int8 import _int8_scores_xla, int8_scores_triton
+
+    rng = np.random.default_rng(q_count * 7 + n)
+    rows = _unit_rows(rng, n, 96)
+    padded, nv = pad_rows(rows)
+    nv = min(nv, n_valid)
+    mq, scales = quantize_rows(padded)
+    qi = rng.integers(-127, 128, (q_count, 96), dtype=np.int8)
+    nv_arr = jnp.asarray(nv, jnp.int32)
+    got = np.asarray(int8_scores_triton(
+        jnp.asarray(qi), jnp.asarray(mq), jnp.asarray(scales), nv_arr,
+        interpret=True,
+    ))
+    xla = np.asarray(_int8_scores_xla(
+        jnp.asarray(qi), jnp.asarray(mq), jnp.asarray(scales), nv_arr
+    ))
+    assert got.shape == (q_count, padded.shape[0])
+    np.testing.assert_array_equal(got, xla)
+    np.testing.assert_array_equal(got, _int8_oracle(qi, mq, scales, nv))
+
+
+def test_int8_scan_route_and_shape_gate(monkeypatch):
+    """int8_scores routes on the platform alone: the Triton route always
+    takes the kernel, the XLA route never does. The Triton wrapper refuses a
+    shape it cannot tile (N not a block multiple, D not a multiple of 16)
+    instead of falling back, so a mis-padded matrix fails loudly."""
+    import tpuclip.ops.topk_int8 as ti
+
+    assert ti.triton_scan_fits(1024, 1152) and ti.triton_scan_fits(64, 64)
+    assert not ti.triton_scan_fits(1000, 1152)  # ragged N
+    assert not ti.triton_scan_fits(1024, 100)   # D not a multiple of 16
+    assert not ti.triton_scan_fits(0, 64)
+    assert ti._triton_block_k(1152) == 128 and ti._triton_block_k(96) == 32
+    q = jnp.zeros((2, 64), jnp.int8)
+    with pytest.raises(ValueError):
+        ti.int8_scores_triton(q, jnp.zeros((1000, 64), jnp.int8), jnp.ones(1000), 10)
+    monkeypatch.setattr(ti.platform, "int8_scan_route", lambda device=None: "triton")
+    with pytest.raises(ValueError):  # ragged under the Triton route: no fallback
+        ti.int8_scores(q, jnp.zeros((1000, 64), jnp.int8), jnp.ones(1000), 10)
+    calls = []
+    real_triton = ti.int8_scores_triton
+    monkeypatch.setattr(
+        ti, "int8_scores_triton",
+        lambda *a, **kw: calls.append("triton") or real_triton(*a, interpret=True),
     )
-    sx, ix = topk_int8_xla(
-        jnp.asarray(qi), jnp.asarray(mq), jnp.asarray(scales), jnp.asarray(qs), 13
-    )
-    np.testing.assert_array_equal(np.asarray(ip), np.asarray(ix))
-    np.testing.assert_allclose(np.asarray(sp), np.asarray(sx), rtol=1e-6)
+    ti.int8_scores(q, jnp.zeros((1024, 64), jnp.int8), jnp.ones(1024), 10)
+    monkeypatch.setattr(ti.platform, "int8_scan_route", lambda device=None: "xla")
+    ti.int8_scores(q, jnp.zeros((1000, 64), jnp.int8), jnp.ones(1000), 10)
+    assert calls == ["triton"]
 
 
 def test_binary_topk_packed_matches_unpacked():
@@ -113,7 +156,7 @@ def test_binary_topk_packed_matches_unpacked():
 def test_int8_rerank_exact_vs_fp32_oracle(tmp_path, monkeypatch):
     """DeviceIndex int8 mode with HOST re-ranking must return exactly the
     fp32 brute-force ordering — on every backend: the int8 shortlist is
-    integer-exact on TPU too, and the rerank is host fp32 numpy (device
+    integer-exact on every backend, and the rerank is host fp32 numpy (device
     rerank is pinned off so this path, not the fused one, is under test)."""
     import sqlite3
 
@@ -150,68 +193,33 @@ def test_int8_rerank_exact_vs_fp32_oracle(tmp_path, monkeypatch):
 
 
 def test_fused_rerank_matches_full_precision_oracle(data):
-    """topk_int8_rerank_fused == the full-precision scan (exact on CPU;
-    dtype-aware on device, where the reference scan and the rescore einsum
-    may use different internal f32 matmul precisions): the shortlist comes
-    from int8 but every returned score is rescored against the resident
-    full-precision rows."""
-    from tpuclip.ops.topk import pad_matrix_t
+    """topk_int8_rerank_fused == the full-precision scan: the shortlist
+    comes from int8 but every returned score is rescored against the
+    resident full-precision rows — for each shortlist method."""
     from tpuclip.ops.topk_int8 import topk_int8_rerank_fused
 
     matrix, queries = data
-    n, d, k = 8192, 128, 20
+    n, d, k = 8000, 128, 20
     rows = matrix[:n]
-    mt, nv = pad_matrix_t(rows.T.copy(), tile_n=1024)
-    mq, scales = quantize_matrix_t(mt)
+    padded, nv = pad_rows(rows)
+    mq, scales = quantize_rows(padded)
     nv_arr = jnp.asarray(nv, jnp.int32)
     ref_s, ref_i = topk_xla(
-        jnp.asarray(queries[:3]), jnp.asarray(mt), k, n_valid=nv_arr
+        jnp.asarray(queries[:3]), jnp.asarray(rows.T.copy()), k
     )
 
-    for kwargs in (
-        dict(use_pallas=False),
-        dict(use_pallas=True, tile_n=1024, interpret=True),
-        dict(use_pallas=True, tile_n=1024, interpret=True, use_packed=False),
-    ):
+    for method in ("exact", "approx"):
         s, i = topk_int8_rerank_fused(
             jnp.asarray(queries[:3]), jnp.asarray(mq), jnp.asarray(scales),
-            jnp.asarray(rows), k, shortlist=256, n_valid=nv_arr, **kwargs
+            jnp.asarray(rows), k, shortlist=256, n_valid=nv_arr,
+            shortlist_method=method,
         )
-        assert_topk_oracle(i, ref_i, s, ref_s, rtol_device=5e-3, atol_device=5e-3)
+        assert_topk_oracle(i, ref_i, s, ref_s)
 
 
-def test_fused_rerank_packed_matches_unpacked(data):
-    """The packed-key shortlist kernel (production default) must yield the
-    same final results as the (score, idx)-pair kernel it replaced: the key
-    truncation (2^-11 relative) only perturbs shortlist tie selection, and
-    the exact rescore makes the outputs identical whenever the shortlist
-    covers the true top-k (property also probed on hardware:
-    scripts/probe_topk_int8.py, overlap 1.0000@512)."""
-    from tpuclip.ops.topk import pad_matrix_t
-    from tpuclip.ops.topk_int8 import topk_int8_rerank_fused
-
-    matrix, queries = data
-    n, d, k = 8192, 128, 15
-    rows = matrix[:n]
-    mt, nv = pad_matrix_t(rows.T.copy(), tile_n=1024)
-    mq, scales = quantize_matrix_t(mt)
-    nv_arr = jnp.asarray(nv, jnp.int32)
-    args = (jnp.asarray(queries[:4]), jnp.asarray(mq), jnp.asarray(scales),
-            jnp.asarray(rows), k)
-    kw = dict(shortlist=256, n_valid=nv_arr, use_pallas=True, tile_n=1024,
-              interpret=True)
-    s_p, i_p = topk_int8_rerank_fused(*args, use_packed=True, **kw)
-    s_u, i_u = topk_int8_rerank_fused(*args, use_packed=False, **kw)
-    np.testing.assert_array_equal(np.asarray(i_p), np.asarray(i_u))
-    np.testing.assert_allclose(np.asarray(s_p), np.asarray(s_u), rtol=1e-6)
-
-
-def test_fused_rerank_wide_query_batch_narrows_tile(data):
-    """q=64 (the serve micro-batcher's max) must select a narrower Pallas
-    tile: the 6144 tile's scoped VMEM overflows at wide batches (measured
-    17.38 M vs the 16 M limit on v5e). Results must still match the
-    unpadded oracle."""
-    from tpuclip.ops.topk import pad_matrix_t
+def test_fused_rerank_wide_query_batch_matches_oracle(data):
+    """q=64 (the serve micro-batcher's max) through one fused program must
+    match the unpadded oracle row for row."""
     from tpuclip.ops.topk_int8 import INT8_TILE_N, topk_int8_rerank_fused
 
     matrix, _ = data
@@ -221,12 +229,11 @@ def test_fused_rerank_wide_query_batch_narrows_tile(data):
     rows /= np.linalg.norm(rows, axis=1, keepdims=True)
     queries = rng.standard_normal((q_count, d)).astype(np.float32)
     queries /= np.linalg.norm(queries, axis=1, keepdims=True)
-    mt, nv = pad_matrix_t(rows.T.copy(), tile_n=INT8_TILE_N)
-    mq, scales = quantize_matrix_t(mt)
+    padded, nv = pad_rows(rows, tile_n=INT8_TILE_N)
+    mq, scales = quantize_rows(padded)
     s, i = topk_int8_rerank_fused(
         jnp.asarray(queries), jnp.asarray(mq), jnp.asarray(scales),
         jnp.asarray(rows), k, n_valid=jnp.asarray(nv, jnp.int32),
-        use_pallas=True, interpret=True,
     )
     exact = queries @ rows.T
     for r in range(q_count):
@@ -234,60 +241,28 @@ def test_fused_rerank_wide_query_batch_narrows_tile(data):
         np.testing.assert_array_equal(np.asarray(i)[r], order)
 
 
-def test_pack_keys_roundtrip_ordering():
-    """_pack_keys is order-preserving past truncation and the lane index
-    unpacks exactly; -inf lanes fall at or below _NEGINF_KEY_MAX."""
-    import jax
-
-    from tpuclip.ops.topk_int8 import _IDX_MASK, _NEGINF_KEY_MAX, _pack_keys
-
-    rng = np.random.default_rng(7)
-    scores = np.concatenate([
-        rng.standard_normal(500).astype(np.float32) * 10,
-        np.asarray([0.0, -0.0, 1e-30, -1e-30, 3.4e38, -3.4e38], np.float32),
-        np.full(6, -np.inf, np.float32),
-    ])[None, :]
-    keys = np.asarray(_pack_keys(jnp.asarray(scores)))[0]
-    finite = np.isfinite(scores[0])
-    assert np.all(keys[~finite] <= _NEGINF_KEY_MAX)
-    assert np.all(keys[finite] > _NEGINF_KEY_MAX)
-    # lane unpack is exact
-    u = keys.view(np.uint32) ^ np.uint32(0x80000000)
-    lanes = (np.uint32(_IDX_MASK) - (u & np.uint32(_IDX_MASK))).astype(np.int32)
-    np.testing.assert_array_equal(lanes, np.arange(scores.shape[1]))
-    # key order == score order wherever scores differ beyond truncation
-    order_keys = np.argsort(-keys[finite], kind="stable")
-    order_scores = np.argsort(-scores[0][finite], kind="stable")
-    s_sorted = scores[0][finite][order_scores]
-    distinct = np.abs(np.diff(s_sorted)) > np.abs(s_sorted[:-1]) * 2**-10 + 1e-35
-    keep = np.concatenate([[True], distinct]) & np.concatenate([distinct, [True]])
-    np.testing.assert_array_equal(order_keys[keep], order_scores[keep])
-
-
 def test_fused_rerank_small_index_edge():
     """n smaller than the shortlist and k > n: no sentinel leakage."""
-    from tpuclip.ops.topk import pad_matrix_t
     from tpuclip.ops.topk_int8 import topk_int8_rerank_fused
 
     rng = np.random.default_rng(3)
     rows = _unit_rows(rng, 37, 64)
-    mt, nv = pad_matrix_t(rows.T.copy(), tile_n=256)
-    mq, scales = quantize_matrix_t(mt)
+    padded, nv = pad_rows(rows, tile_n=256)
+    mq, scales = quantize_rows(padded)
     q = _unit_rows(rng, 1, 64)
     s, i = topk_int8_rerank_fused(
         jnp.asarray(q), jnp.asarray(mq), jnp.asarray(scales), jnp.asarray(rows),
-        10, shortlist=512, n_valid=jnp.asarray(nv, jnp.int32), use_pallas=False,
+        10, shortlist=512, n_valid=jnp.asarray(nv, jnp.int32),
     )
     exact = rows @ q[0]
     order = np.lexsort((np.arange(len(rows)), -exact))[:10]
-    assert_topk_oracle(i[0], order, s[0], exact[order], rtol_device=5e-3, atol_device=5e-3)
+    assert_topk_oracle(i[0], order, s[0], exact[order])
 
 
 def test_device_index_fused_rerank_matches_oracle(tmp_path, monkeypatch):
     """DeviceIndex with device-side rerank forced ON: single and batched
     searches return the full-precision ordering through the fused program
-    (the path production TPU serving takes; dtype-aware on device where the
-    resident rows are bf16)."""
+    (the path GPU serving takes)."""
     import sqlite3
 
     from tpuclip.index.search import DeviceIndex
@@ -328,18 +303,12 @@ def test_topk_int8_batch_device_quant_matches_host_quant():
     quantize-then-scan it replaced."""
     import jax.numpy as jnp
 
-    from tpuclip.ops.topk import pad_matrix_t
-    from tpuclip.ops.topk_int8 import (
-        INT8_TILE_N,
-        quantize_matrix_t,
-        topk_int8_batch,
-        topk_int8_xla,
-    )
+    from tpuclip.ops.topk_int8 import INT8_TILE_N, topk_int8_batch
 
     rng = np.random.default_rng(21)
     m = rng.standard_normal((3000, 128)).astype(np.float32)
-    mt, nv = pad_matrix_t(m.T.copy(), tile_n=INT8_TILE_N)
-    mq, scales = quantize_matrix_t(mt)
+    padded, nv = pad_rows(m, tile_n=INT8_TILE_N)
+    mq, scales = quantize_rows(padded)
     q = rng.standard_normal((5, 128)).astype(np.float32)
     q[3] = 0.0  # zero query exercises the zero-scale guard
 
@@ -351,7 +320,7 @@ def test_topk_int8_batch_device_quant_matches_host_quant():
     qs = np.abs(q).max(axis=1, keepdims=True) / 127.0
     qs = np.where(qs == 0, 1.0, qs)
     qi = np.clip(np.rint(q / qs), -127, 127).astype(np.int8)
-    ref_s, ref_i = topk_int8_xla(
+    ref_s, ref_i = topk_int8_scan(
         jnp.asarray(qi), jnp.asarray(mq), jnp.asarray(scales),
         jnp.asarray(1.0, jnp.float32), 9, n_valid=jnp.asarray(nv, jnp.int32),
     )
@@ -363,7 +332,8 @@ def test_search_batch_int8_reranks_like_single(tmp_path, monkeypatch):
     """search_batch in int8 mode must apply the same exact fp32 re-rank as
     the single-query path (review r2 finding: the serve micro-batcher rides
     search_batch, which previously skipped the rerank). Host-rerank path
-    pinned (device rerank off) so the fp32 ordering is exact on TPU too."""
+    pinned (device rerank off) so the fp32 ordering is exact on every
+    backend."""
     import sqlite3
 
     from tpuclip.index.search import DeviceIndex
@@ -642,38 +612,32 @@ def test_search_image_fused_resident_scores_fallback(tmp_path, monkeypatch):
 
 
 def test_derive_int8_matrix_device_matches_host_quantize():
-    """Device-side derivation from f32 rows == host quantize_matrix_t on the
+    """Device-side derivation from f32 rows == host quantize_rows on the
     same values: int8 entries bit-exact (same per-vector scale rule, same
     half-to-even rounding), scales within 1 ulp (XLA lowers /127 as a
-    reciprocal multiply), pad columns zero int8 / scale 1.0."""
-    from tpuclip.ops.topk import pad_matrix_t
+    reciprocal multiply), pad rows zero int8 / scale 1.0."""
     from tpuclip.ops.topk_int8 import derive_int8_matrix_device
 
     rng = np.random.default_rng(23)
     rows = _unit_rows(rng, 1000, 96)
     n_pad = 1536
     q_dev, s_dev = derive_int8_matrix_device(jnp.asarray(rows), n_pad)
-    mt, _ = pad_matrix_t(rows.T.copy(), tile_n=n_pad)
-    q_host, s_host = quantize_matrix_t(mt)
+    padded, _ = pad_rows(rows, tile_n=n_pad)
+    q_host, s_host = quantize_rows(padded)
     np.testing.assert_array_equal(np.asarray(q_dev), q_host)
     np.testing.assert_allclose(np.asarray(s_dev), s_host, rtol=1e-6)
-    assert np.all(np.asarray(q_dev)[:, 1000:] == 0)
+    assert np.all(np.asarray(q_dev)[1000:] == 0)
     assert np.all(np.asarray(s_dev)[1000:] == 1.0)
 
 
 def test_fused_rerank_shape_boundary_fuzz():
-    """Randomized boundary fuzz: valid-row counts straddling tile, sublane
-    (8), lane (128), and shortlist boundaries; k from 1 to the index size.
+    """Randomized boundary fuzz: valid-row counts straddling tile, 8-row,
+    128-row, and shortlist boundaries; k from 1 to the index size.
     Each case must return EXACTLY the fp32 oracle's top-k (the fused path's
     rescore is exact) — tile-edge bugs show up as dropped or phantom rows."""
     import random
 
-    from tpuclip.ops.topk import pad_matrix_t
-    from tpuclip.ops.topk_int8 import (
-        INT8_TILE_N,
-        quantize_matrix_t,
-        topk_int8_rerank_fused,
-    )
+    from tpuclip.ops.topk_int8 import INT8_TILE_N, topk_int8_rerank_fused
 
     rng_py = random.Random(17)
     rng = np.random.default_rng(17)
@@ -684,13 +648,13 @@ def test_fused_rerank_shape_boundary_fuzz():
         k = rng_py.choice([1, 2, 5, min(64, n), n, n + 3])
         rows = rng.standard_normal((n, d)).astype(np.float32)
         rows /= np.linalg.norm(rows, axis=1, keepdims=True)
-        mt, nv = pad_matrix_t(np.ascontiguousarray(rows.T), tile_n=INT8_TILE_N)
-        q8, scales = quantize_matrix_t(mt)
+        padded, nv = pad_rows(rows, tile_n=INT8_TILE_N)
+        q8, scales = quantize_rows(padded)
         queries = rng.standard_normal((2, d)).astype(np.float32)
         scores, ridx = topk_int8_rerank_fused(
             jnp.asarray(queries), jnp.asarray(q8), jnp.asarray(scales),
             jnp.asarray(rows), min(k, 128),
-            n_valid=jnp.asarray(nv, jnp.int32), use_pallas=False,
+            n_valid=jnp.asarray(nv, jnp.int32),
         )
         scores, ridx = np.asarray(scores), np.asarray(ridx)
         exact = queries @ rows.T
@@ -709,7 +673,6 @@ def test_engine_search_mixed_fused_matches_separate_paths(tmp_path, monkeypatch)
     r4) must return exactly what the separate fused passes return, for
     every text and every image, across bucket-padded shapes (3 texts →
     bucket 4; 2 images → bucket 2)."""
-    from conftest import ON_DEVICE
 
     from tpuclip.io.decode import load_image
 
@@ -724,22 +687,11 @@ def test_engine_search_mixed_fused_matches_separate_paths(tmp_path, monkeypatch)
     assert len(t_res) == len(texts) and len(i_res) == len(imgs)
 
     def assert_results_match(got, exp):
-        # CPU: bit-exact paths + tight scores. Real device: the mixed and
-        # separate programs are DIFFERENT compiled shapes, so bf16-pass
-        # f32 drift (~6e-4 measured on v5e) legitimately perturbs scores
-        # and can flip near-tie ranks — assert set equality + loose
-        # scores there (same policy as conftest.assert_topk_oracle).
-        if ON_DEVICE:
-            assert {p for p, _ in got} == {p for p, _ in exp}
-            np.testing.assert_allclose(
-                sorted(s for _, s in got), sorted(s for _, s in exp),
-                rtol=2e-2, atol=2e-2,
-            )
-        else:
-            assert [p for p, _ in got] == [p for p, _ in exp]
-            np.testing.assert_allclose(
-                [s for _, s in got], [s for _, s in exp], rtol=1e-5, atol=1e-6
-            )
+        # bit-exact paths + tight scores (the suite's f32 is IEEE on CPU)
+        assert [p for p, _ in got] == [p for p, _ in exp]
+        np.testing.assert_allclose(
+            [s for _, s in got], [s for _, s in exp], rtol=1e-5, atol=1e-6
+        )
 
     exp_t = eng._search_texts_fused(texts, k)
     for got, exp in zip(t_res, exp_t):
@@ -768,10 +720,7 @@ def test_engine_search_mixed_fused_matches_separate_paths(tmp_path, monkeypatch)
     if calls == ["verified"]:  # CPU resolves to a non-verified method
         assert eng.index.shortlist_stats["shortlist_fallbacks"] == before + 1
     for got, exp in zip(t2 + i2, t_res + i_res):
-        if ON_DEVICE:  # fallback rescore is a different compiled program
-            assert {p for p, _ in got} == {p for p, _ in exp}
-        else:
-            assert [p for p, _ in got] == [p for p, _ in exp]
+        assert [p for p, _ in got] == [p for p, _ in exp]
 
 
 def test_naflex_mixed_fused_matches_separate_paths(tmp_path, monkeypatch):
@@ -807,26 +756,15 @@ def test_naflex_mixed_fused_matches_separate_paths(tmp_path, monkeypatch):
     img_paths = [str(root / "img_2.jpg"), str(root / "img_5.jpg")]  # bucket 2
     imgs = [load_image(p) for p in img_paths]
 
-    from conftest import ON_DEVICE
-
     t_res, i_res = eng._search_mixed_fused(texts, imgs, k)
     assert len(t_res) == 3 and len(i_res) == 2
 
     def assert_results_match(got, exp):
-        # Same device-drift policy as the fixed-res mixed test: the mixed
-        # and separate programs are different compiled shapes on the real
-        # chip, so assert set equality + loose scores there.
-        if ON_DEVICE:
-            assert {p for p, _ in got} == {p for p, _ in exp}
-            np.testing.assert_allclose(
-                sorted(s for _, s in got), sorted(s for _, s in exp),
-                rtol=2e-2, atol=2e-2,
-            )
-        else:
-            assert [p for p, _ in got] == [p for p, _ in exp]
-            np.testing.assert_allclose(
-                [s for _, s in got], [s for _, s in exp], rtol=1e-5, atol=1e-6
-            )
+        # same exactness policy as the fixed-res mixed test
+        assert [p for p, _ in got] == [p for p, _ in exp]
+        np.testing.assert_allclose(
+            [s for _, s in got], [s for _, s in exp], rtol=1e-5, atol=1e-6
+        )
 
     exp_t = eng._search_texts_fused(texts, k)
     for got, exp in zip(t_res, exp_t):

@@ -77,7 +77,7 @@ def test_convert_cli(tmp_path):
     src = tmp_path / "hf"
     model.save_pretrained(str(src))
 
-    dst = tmp_path / "tpu"
+    dst = tmp_path / "native"
     main(["convert", str(src), str(dst)])
 
     from tpuclip.models.checkpoint import load_checkpoint

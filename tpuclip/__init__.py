@@ -1,14 +1,15 @@
-"""tpuclip — a TPU-native image-embedding & retrieval framework.
+"""tpuclip — an image-embedding & retrieval framework on NVIDIA GPUs.
 
 A from-scratch rebuild of the capabilities of droon/CLIP-database
-(reference: /root/reference/image_database.py) designed TPU-first:
+(reference: image_database.py) in JAX:
 
-- SigLIP/SigLIP2 vision+text towers implemented in pure JAX (jit/pjit),
-  with Pallas fused kernels for the hot ops (attention, matmul+top-k).
+- SigLIP/SigLIP2 vision+text towers implemented in pure JAX (jit/pjit);
+  the int8 scan behind every default query is a Pallas kernel compiled
+  through Triton.
 - A batched, prefetching host-side decode/preprocess pipeline feeding
   the device, instead of serial per-image PIL work.
 - Brute-force cosine search as an on-device fused matmul+top-k over an
-  HBM-resident (optionally mesh-sharded) embedding matrix, instead of
+  device-resident (optionally mesh-sharded) embedding matrix, instead of
   sqlite-vec's C extension scan.
 - SQLite retained for metadata only (same `images` table contract as the
   reference, image_database.py:275-283), embeddings in packed arrays.

@@ -171,7 +171,7 @@ def display_query_string(spec: SearchSpec) -> str:
 def build_parser() -> argparse.ArgumentParser:
     paths = default_paths()
     parser = argparse.ArgumentParser(
-        prog="tpuclip", description="Searchable Image Database using SigLIP 2 (TPU-native)"
+        prog="tpuclip", description="Searchable Image Database using SigLIP 2 (JAX, NVIDIA GPU)"
     )
     subparsers = parser.add_subparsers(dest="mode", help="Mode to run")
 
@@ -187,7 +187,7 @@ def build_parser() -> argparse.ArgumentParser:
     scan_parser.add_argument("--exclude", action="append", help="Exclude directory path (can be used multiple times)")
     scan_parser.add_argument("--binary-only", action="store_true", help="Only save binary embeddings (space-efficient mode)")
     scan_parser.add_argument("--fp16-vectors", action="store_true", help="Store full vectors as fp16 blobs (half the DB size; search re-ranks against fp32)")
-    scan_parser.add_argument("--int8-vectors", action="store_true", help="Store full vectors as per-vector symmetric int8 (quarter the DB size; identical results under the default TPU int8 scan, exact rescore then runs at int8 precision)")
+    scan_parser.add_argument("--int8-vectors", action="store_true", help="Store full vectors as per-vector symmetric int8 (quarter the DB size; identical results under the default GPU int8 scan, exact rescore then runs at int8 precision)")
     scan_parser.add_argument("--model", default=None, help="Model preset name (default: google/siglip2-so400m-patch14-224)")
     scan_parser.add_argument(
         "--fast-decode", action="store_true",
@@ -227,7 +227,7 @@ def build_parser() -> argparse.ArgumentParser:
     search_parser.add_argument("--profile", action="store_true", help="Show performance profiling information for search")
     search_parser.add_argument("--show-duplicates", action="store_true", help="Show duplicate images in results (default: filtered)")
     search_parser.add_argument("--model", default=None, help="Model preset name (default: google/siglip2-so400m-patch14-224)")
-    search_parser.add_argument("--precision", choices=["bf16", "int8"], default=None, help="Search precision: int8 quantized scan with exact re-rank (TPU default) or plain bf16 scan (default elsewhere)")
+    search_parser.add_argument("--precision", choices=["bf16", "int8"], default=None, help="Search precision: int8 quantized scan with exact re-rank (GPU default) or plain bf16 scan (CPU default)")
     search_parser.add_argument("--mode", dest="search_mode", choices=["exact", "ivf", "cascade"], default=None, help="Search mode: exact scan (default), bucketed IVF, or binary-cascade (1 bit/dim HBM prefilter + exact rescore — for indexes past the HBM budget)")
 
     # Beyond the reference surface: checkpoint conversion + fine-tuning.

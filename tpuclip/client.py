@@ -5,7 +5,7 @@ HTTP surface documented in serve.py: search (text mini-language, algebra
 params, image upload), batch search, raw embeddings, health, stats.
 
     from tpuclip.client import Client
-    c = Client("http://tpu-host:8000")
+    c = Client("http://gpu-host:8000")
     for path, sim in c.search("a red bicycle", k=20):
         ...
     vecs = c.embed_texts(["a dog", "a cat"])        # np.float32 (2, D)

@@ -1,11 +1,11 @@
 """The resident engine: model + database + device index.
 
-TPU-native counterpart of the reference's ``ImageDatabase`` class
+Device-resident counterpart of the reference's ``ImageDatabase`` class
 (image_database.py:145-243). One instance holds:
 
-- the SigLIP params resident on device (bf16 on TPU, fp32 on CPU — the
+- the SigLIP params resident on device (bf16 on the GPU, fp32 on CPU — the
   analog of the reference's fp16-on-CUDA/fp32-on-CPU split,
-  image_database.py:174-175),
+  image_database.py:174-175; ``tpuclip.platform.compute_dtype``),
 - jit-compiled image/text feature functions with *fixed* batch shapes
   (batches are zero-padded to ``inference_batch_size`` so exactly one
   program is compiled per tower),
@@ -26,6 +26,7 @@ import jax
 import jax.numpy as jnp
 import numpy as np
 
+from tpuclip import platform
 from tpuclip.config import default_paths
 from tpuclip.index.search import DeviceIndex
 from tpuclip.index.store import MetadataStore
@@ -64,18 +65,17 @@ class ImageDatabase:
         log(f"Database path: {self.db_path}")
         log(f"Model cache directory: {self.model_cache_dir}")
 
-        backend = jax.default_backend()
         self.device = jax.devices()[0]
         if compute_dtype is None:
-            compute_dtype = jnp.bfloat16 if backend == "tpu" else jnp.float32
+            compute_dtype = platform.compute_dtype(self.device)
         self.compute_dtype = compute_dtype
-        log(f"\nCompute device: {backend} ({self.device})")
+        log(f"\nCompute device: {platform.platform_of(self.device)} ({self.device})")
         log(f"  [OK] Data type: {jnp.dtype(self.compute_dtype).name}")
 
         log(f"\nLoading SigLIP 2 model...\n  Model: {model_name}")
         self.model_name = model_name
         self.config, host_params = load_model(model_name, self.model_cache_dir)
-        # Params live on device in compute dtype (HBM: so400m bf16 ≈ 1.8 GB).
+        # Params live on device in compute dtype (so400m bf16 ≈ 1.8 GB).
         self.params = jax.device_put(
             cast_params(host_params, self.compute_dtype), self.device
         )
@@ -140,7 +140,8 @@ class ImageDatabase:
             self.config,
             compute_dtype=self.compute_dtype,
         )
-        return np.asarray(out[:b], dtype=np.float32)
+        # slice on the host: a device-side slice compiles a program per shape
+        return np.asarray(out, dtype=np.float32)[:b]
 
     def embed_patches_naflex(
         self, patches: np.ndarray, masks: np.ndarray, shapes: np.ndarray
@@ -177,7 +178,8 @@ class ImageDatabase:
             self.config,
             compute_dtype=self.compute_dtype,
         )
-        return np.asarray(out[:b], dtype=np.float32)
+        # slice on the host: a device-side slice compiles a program per shape
+        return np.asarray(out, dtype=np.float32)[:b]
 
     def _tokenize_bucketed(self, texts: List[str]):
         """Prompt + tokenize, padded to the ladder batch size so arbitrary
@@ -213,7 +215,8 @@ class ImageDatabase:
             compute_dtype=self.compute_dtype,
             attention_mask=jnp.asarray(mask),
         )
-        return np.asarray(out[:b], dtype=np.float32)
+        # slice on the host: a device-side slice compiles a program per shape
+        return np.asarray(out, dtype=np.float32)[:b]
 
     def search_texts(
         self, texts: List[str], k: int, filter_folders=None
@@ -241,10 +244,8 @@ class ImageDatabase:
 
     def _search_mixed_fused(self, texts: List[str], images: List, k: int):
         """Mixed text+image fused search: both towers + ONE shared int8
-        scan in a single device program (the serve micro-batcher's mixed
-        window previously paid the scan's matrix read twice — measured
-        −3.2 ms per 2+2 window at 1M rows on v5e,
-        scripts/probe_mixed_batch.py). Caller has already checked
+        scan in a single device program (separate text and image passes
+        would pay the scan's matrix read twice). Caller has already checked
         ``can_fuse_text_search``; returns (text_results, image_results)
         aligned to the inputs. NaFlex models route through the
         patchified-variant program."""

@@ -1,8 +1,8 @@
 """Packed embedding-matrix cache.
 
 sqlite-vec re-scans BLOB rows inside SQLite on every query
-(image_database.py:1564-1574). TPU-native replacement: embeddings live in a
-packed on-disk matrix that memory-maps instantly and uploads to device HBM
+(image_database.py:1564-1574). Replacement: embeddings live in a packed
+on-disk matrix that memory-maps instantly and uploads to device memory
 once per session; queries are then a single fused matmul+top-k on device.
 
 Layout, per database ``<db>.cache/``:

@@ -1,20 +1,19 @@
-"""IVF (inverted-file) approximate search — a TPU-first bucketed design.
+"""IVF (inverted-file) approximate search — a static-shape bucketed design.
 
 Beyond-reference capability: the reference scans every vector per query
 (sqlite-vec brute force, image_database.py:1564-1574); tpuclip's exact scan
-already does that at HBM bandwidth (2.7 ms/1M int8). IVF trades a little
-recall for a ~10-30x smaller scan, which (a) drops 1M-row p50 under a
-millisecond of device time and (b) keeps 10M+ rows/chip interactive.
+already does that at device-memory bandwidth. IVF trades a little recall
+for a ~10-30x smaller scan. Its time on the GPU is not measured yet.
 
-TPU-first shape decisions (everything static under jit):
-- **Spherical k-means on device**: centroids live on the MXU; assignment is
-  one (M, D) x (D, K) matmul per iteration; updates are segment-sums.
+Shape decisions (everything static under jit):
+- **Spherical k-means on device**: assignment is one (M, D) x (D, K)
+  matmul per iteration; updates are segment-sums.
 - **Balanced buckets, not ragged lists**: classic IVF keeps variable-length
   posting lists — dynamic shapes XLA can't tile. Here every cluster gets a
   fixed capacity C (cap x mean size); rows beyond capacity spill to one
   **overflow block that every query scans**, so bucketing never silently
   drops a row. Layout: (K, D, C) int8 blocks, feature-major within the
-  block so the probe matmul hits the MXU like the exact kernel does.
+  block so the probe is one plain matmul.
 - **Probe = gather + one matmul**: top-P centroid buckets gather to a
   (P, D, C) block, scored as a single (1, D) x (D, P*C) int8 matmul; the
   overflow block appends. Scores rescale by per-row int8 scales; the final
@@ -135,8 +134,8 @@ def build_ivf(
         cent = train_centroids(vectors, k_clusters, iters=iters, seed=seed)
     x = np.asarray(vectors, np.float32)
 
-    # Assign every row on device (a 1M x 1152 @ 1152 x 2048 matmul is ~20 s
-    # of host numpy on a small box but milliseconds on the MXU), chunked so
+    # Assign every row on device (a 1M x 1152 @ 1152 x 2048 matmul is tens
+    # of seconds of host numpy but one quick device program), chunked so
     # arbitrary N reuses one compiled program.
     @functools.partial(jax.jit, static_argnames=())
     def _assign_chunk(xc, cent_t):
@@ -153,7 +152,7 @@ def build_ivf(
         assign[s : s + chunk] = out[: min(chunk, n - s)]
 
     cap = int(-(-(n / k_clusters * capacity_factor) // 1))
-    cap = max(8, -(-cap // 8) * 8)  # sublane-friendly
+    cap = max(8, -(-cap // 8) * 8)  # a multiple of 8 rows
 
     # Per-vector symmetric int8 quantization (same scheme as the flat index)
     scales_all = np.abs(x).max(axis=1) / 127.0
@@ -436,7 +435,7 @@ def ivf_topk_rerank(
             qi_row[None, :], slab_t,
             dimension_numbers=(((1,), (0,)), ((), ())),
             preferred_element_type=jnp.int32,
-        )  # (1, P*C) int8 MXU dot, exact int32 accumulation
+        )  # (1, P*C) int8 dot, exact int32 accumulation
         s = acc[0].astype(jnp.float32) * sc.reshape(-1)
         return s, rid.reshape(-1)
 
@@ -465,7 +464,11 @@ def ivf_topk_rerank(
     else:
         qr = q_f32.astype(jnp.float32)
     gathered = rows_full[safe].astype(jnp.float32)
-    exact = jnp.einsum("qmd,qd->qm", gathered, qr, preferred_element_type=jnp.float32)
+    # Exact for bf16 rows at default precision (TF32 holds bf16 values);
+    # f32 rows need HIGHEST (ops/topk_int8._rescore_select).
+    precision = None if rows_full.dtype == jnp.bfloat16 else jax.lax.Precision.HIGHEST
+    exact = jnp.einsum("qmd,qd->qm", gathered, qr, preferred_element_type=jnp.float32,
+                       precision=precision)
     invalid = (cand < 0) | (cand >= n_rows) | jnp.isneginf(top_s)
     exact = jnp.where(invalid, _NEG_INF, exact)
     sort_rows = jnp.where(invalid, jnp.iinfo(jnp.int32).max, cand)

@@ -2,12 +2,12 @@
 
 The reference keeps everything in SQLite: metadata in ``images``, float vectors
 in the sqlite-vec ``vec0`` virtual table, and sign bits in
-``binary_embeddings`` (image_database.py:245-344). TPU-native redesign:
+``binary_embeddings`` (image_database.py:245-344). Redesign:
 
 - ``images`` keeps the exact reference schema (image_database.py:275-283) so
   resume semantics and external tooling carry over unchanged.
 - Float embeddings live in a plain ``embeddings`` BLOB table (no C extension
-  needed) and are *served* from a packed matrix cache uploaded to device HBM
+  needed) and are *served* from a packed matrix cache uploaded to the device
   (see tpuclip.index.cache / tpuclip.index.search) — SQLite never scans
   vectors at query time.
 - ``binary_embeddings`` keeps the reference's on-disk format: one byte per
@@ -39,7 +39,7 @@ def _quantize_int8_blob(vec: np.ndarray) -> bytes:
     """Per-vector symmetric int8 blob: dim int8 values + one trailing fp32
     scale (little-endian), dim+4 bytes total.
 
-    The formula MUST match ops/topk_int8.quantize_matrix_t (scale =
+    The formula MUST match ops/topk_int8.quantize_rows (scale =
     max|v|/127, zero vectors get scale 1.0) so that a database stored int8
     produces bit-identical device scan matrices to one stored fp32 and
     quantized at load time (asserted by tests/test_storage_features.py).
@@ -81,7 +81,7 @@ class MetadataStore:
         self.embedding_dim = embedding_dim
         # "fp32" (default, reference-compatible), "fp16" (half the DB size),
         # or "int8" (quarter: per-vector symmetric int8 + a trailing fp32
-        # scale, dim+4 bytes/row — the same quantization the TPU search path
+        # scale, dim+4 bytes/row — the same quantization the int8 search path
         # derives on device, so int8-stored and fp32-stored databases search
         # identically under the default int8 scan). Readers detect per-row by
         # blob length, so mixed DBs stay valid.

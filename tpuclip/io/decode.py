@@ -3,17 +3,18 @@
 Equivalent of ``_load_image`` (image_database.py:408-441): PIL open + RGB
 convert for raster formats; first PDF page rendered at 150 DPI via PyMuPDF
 when available (gated import, same as the reference's PDF_SUPPORT flag,
-image_database.py:132-137). Decode stays on host CPU — TPUs have no image
-codecs — but everything downstream (resize output batching, normalization)
-is pipelined; see tpuclip.io.prefetch.
+image_database.py:132-137). Decode stays on the host CPU; everything
+downstream (resize output batching, normalization) is pipelined; see
+tpuclip.io.prefetch.
+
+Pillow is imported on first decode, not with the module, so text-only
+paths (``engine``, ``search``, ``serve`` text queries) run without it.
 """
 
 from __future__ import annotations
 
 from pathlib import Path
 from typing import Optional
-
-from PIL import Image
 
 from tpuclip.utils.logging import safe_print_path
 
@@ -25,9 +26,20 @@ except ImportError:
     fitz = None
     PDF_SUPPORT = False
 
-# Raise PIL's ~89MP default so large scans/panoramas decode
-# (image_database.py:142).
-Image.MAX_IMAGE_PIXELS = 500_000_000
+
+def pil_image():
+    """The ``PIL.Image`` module, imported on first use. Raises ImportError
+    with an install hint when Pillow is absent."""
+    try:
+        from PIL import Image
+    except ImportError as e:
+        raise ImportError(
+            "decoding images needs Pillow (pip install pillow)"
+        ) from e
+    # Raise PIL's ~89MP default so large scans/panoramas decode
+    # (image_database.py:142).
+    Image.MAX_IMAGE_PIXELS = 500_000_000
+    return Image
 
 IMAGE_EXTENSIONS = {".jpg", ".jpeg", ".png", ".bmp", ".gif", ".webp", ".tiff", ".tif"}
 
@@ -41,7 +53,7 @@ def supported_extensions(include_pdf: Optional[bool] = None) -> set:
 
 def load_image(
     image_path: str, draft_size: Optional[int] = None
-) -> Optional[Image.Image]:
+) -> "Optional[Image.Image]":
     """Load an RGB PIL image, or None on any failure (containment:
     a bad file must never kill a scan, image_database.py:439-441).
 
@@ -67,7 +79,7 @@ def load_image(
                     page = doc[0]
                     mat = fitz.Matrix(150 / 72, 150 / 72)  # 150 DPI render
                     pix = page.get_pixmap(matrix=mat)
-                    return Image.frombytes("RGB", (pix.width, pix.height), pix.samples)
+                    return pil_image().frombytes("RGB", (pix.width, pix.height), pix.samples)
                 finally:
                     doc.close()
             except Exception as pdf_error:  # noqa: BLE001
@@ -79,9 +91,9 @@ def load_image(
         return None
 
 
-def _decode_raster(fp, draft_size: Optional[int]) -> Image.Image:
+def _decode_raster(fp, draft_size: Optional[int]) -> "Image.Image":
     """Shared raster decode for path and in-memory sources."""
-    img = Image.open(fp)
+    img = pil_image().open(fp)
     if draft_size is not None and img.format == "JPEG":
         # libjpeg picks the most aggressive DCT scale whose output still
         # covers (draft_size, draft_size) in BOTH dims, so the final square
@@ -101,7 +113,7 @@ def _decode_raster(fp, draft_size: Optional[int]) -> Image.Image:
 
 def load_image_bytes(
     data: bytes, image_path: str, draft_size: Optional[int] = None
-) -> Optional[Image.Image]:
+) -> "Optional[Image.Image]":
     """``load_image`` for already-read raster bytes (same containment and
     draft semantics; PDFs must go through ``load_image``).
 

@@ -2,8 +2,8 @@
 
 HF's SiglipImageProcessor resizes to (size, size) with PIL bicubic, rescales
 by 1/255 and normalizes with mean=std=0.5 — all on host, in serial Python,
-per image (the reference's known bottleneck, SURVEY.md §3.1). TPU-native
-split:
+per image (the reference's known bottleneck, SURVEY.md §3.1). Here the
+work is split:
 
 - Host does ONLY the uint8 bicubic resize (PIL's C resampler, bit-identical
   to HF since HF also resizes the uint8 image before any float math).
@@ -17,10 +17,14 @@ scans; PIL remains the correctness reference.
 
 from __future__ import annotations
 
-from typing import List, Optional
+from typing import TYPE_CHECKING, List, Optional
 
 import numpy as np
-from PIL import Image
+
+from tpuclip.io.decode import pil_image
+
+if TYPE_CHECKING:
+    from PIL import Image
 
 IMAGE_MEAN = 0.5
 IMAGE_STD = 0.5
@@ -34,7 +38,7 @@ def resize_to_uint8(image: Image.Image, image_size: int) -> np.ndarray:
     if image.mode != "RGB":
         image = image.convert("RGB")
     if image.size != (image_size, image_size):
-        image = image.resize((image_size, image_size), Image.Resampling.BICUBIC)
+        image = image.resize((image_size, image_size), pil_image().Resampling.BICUBIC)
     return np.asarray(image, dtype=np.uint8)
 
 
@@ -96,7 +100,7 @@ def preprocess_naflex(
     if image.mode != "RGB":
         image = image.convert("RGB")
     th, tw = naflex_target_size(image.height, image.width, patch_size, max_num_patches)
-    resized = image.resize((tw, th), Image.Resampling.BILINEAR)
+    resized = image.resize((tw, th), pil_image().Resampling.BILINEAR)
     arr = np.asarray(resized, dtype=np.uint8)
     h, w = th // patch_size, tw // patch_size
     patches = (

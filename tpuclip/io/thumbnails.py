@@ -11,9 +11,7 @@ import os
 from pathlib import Path
 from typing import Optional, Tuple
 
-from PIL import Image
-
-from tpuclip.io.decode import load_image
+from tpuclip.io.decode import load_image, pil_image
 from tpuclip.io.hashing import file_sha256
 from tpuclip.utils.logging import safe_print_path
 
@@ -48,7 +46,7 @@ class Thumbnailer:
             image = load_image(file_path)
             if image is None:
                 return None
-            image.thumbnail(max_size, Image.Resampling.LANCZOS)
+            image.thumbnail(max_size, pil_image().Resampling.LANCZOS)
             if image.mode != "RGB":
                 image = image.convert("RGB")
             # Write-then-rename: a crash/disk-full mid-save must not leave a

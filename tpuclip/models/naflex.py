@@ -6,7 +6,7 @@ The reference serves only the fixed-resolution checkpoint
 patchifying at a per-image (h, w) grid with h*w <= max_num_patches. HF's
 ``Siglip2VisionModel`` is the oracle (tests/test_naflex.py).
 
-TPU-first shape discipline: everything is STATIC-shaped. A batch is
+Static-shape discipline (one compiled program per batch shape): a batch is
   patches        (B, L, P*P*C)  L = max_num_patches, zero-padded
   pixel_mask     (B, L)         1 = real patch
   spatial_shapes (B, 2)         per-image (h, w) patch grid, h*w <= L
@@ -80,9 +80,10 @@ def resize_position_embeddings(
         c = p_eff % w
         rw = _axis_weights(s, h, r)  # (L, S)
         cw = _axis_weights(s, w, c)  # (L, S)
-        # HIGHEST: TPU default-precision f32 contractions run bf16 passes
-        # (~4e-3 abs error vs HF's fp32 interpolate); this runs once per
-        # grid shape, so true-f32 MXU passes cost nothing measurable.
+        # HIGHEST: default-precision f32 contractions may run in reduced
+        # precision on an accelerator (TF32 on the GPU, ~3 decimal digits,
+        # vs HF's fp32 interpolate); this runs once per grid shape, so the
+        # true-f32 product costs nothing measurable.
         return jnp.einsum(
             "pi,pj,ijd->pd", rw, cw, grid, precision=jax.lax.Precision.HIGHEST
         )

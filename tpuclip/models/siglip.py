@@ -1,6 +1,6 @@
 """SigLIP vision+text towers in pure JAX.
 
-From-scratch TPU-first implementation of the architecture the reference drives
+From-scratch JAX implementation of the architecture the reference drives
 through HF/PyTorch (``SiglipModel.get_image_features`` /
 ``get_text_features``, image_database.py:455, :491, :536). Design notes:
 
@@ -9,19 +9,19 @@ through HF/PyTorch (``SiglipModel.get_image_features`` /
   SO400M tower traces and compiles as one layer, keeping jit compile times
   in seconds rather than minutes.
 - **Patch embedding as one big GEMM**: the stride-14 conv is algebraically a
-  reshape into (batch, patches, patch_pixels) followed by a matmul — the
-  MXU-native form. No conv primitive is used.
+  reshape into (batch, patches, patch_pixels) followed by a matmul — a
+  plain GEMM for the tensor cores. No conv primitive is used.
 - **uint8-native input**: ``pixel_values`` may be uint8 NHWC straight from the
   decoder; rescale (1/255) and normalization (mean=std=0.5 →
   ``x/127.5 - 1``) fuse into the first device op, quartering host→device
   transfer bytes versus shipping float32.
-- **Mixed precision**: matmuls run in ``compute_dtype`` (bf16 on TPU) with
+- **Mixed precision**: matmuls run in ``compute_dtype`` (bf16 on the GPU) with
   fp32 accumulation via ``preferred_element_type``; LayerNorm statistics and
   softmax are computed in fp32. With fp32 everywhere outputs match the HF
   reference to ~1e-6 (see tests/test_parity.py).
-- **Attention stays einsum**: XLA's fused attention beat a hand-written
-  Pallas flash kernel at SigLIP's fixed small sequences (see mha docstring),
-  so there is no custom attention kernel by measurement, not omission.
+- **Attention stays einsum**: at SigLIP's fixed small sequences (256
+  patches, 64 tokens) XLA's fused attention is the plain route; whether
+  cuDNN's fused attention beats it on the GPU is not measured yet.
 
 Weight layout convention: every dense kernel is stored as (in_features,
 out_features) so forward is ``x @ W + b``, i.e. the transpose of PyTorch's
@@ -95,11 +95,8 @@ def mha(
     Equivalent to HF SiglipAttention (modeling_siglip eager path): scale
     1/sqrt(head_dim), softmax in fp32.
 
-    Deliberately einsum, not a hand-written kernel: at SigLIP's fixed small
-    sequences (256 patches / 64 tokens) XLA's fused attention beat a Pallas
-    flash-style kernel in round-1 measurements (660 vs 598 img/s at batch 16
-    on v5e), so the kernel was removed — flash attention pays at long
-    sequences, which this workload never has.
+    Plain einsum for XLA to fuse: flash-style attention pays at long
+    sequences, which this workload (256 patches / 64 tokens) never has.
     """
     q = _split_heads(dense(q_in, p["q_kernel"], p["q_bias"]), num_heads)
     k = _split_heads(dense(kv_in, p["k_kernel"], p["k_bias"]), num_heads)
@@ -131,9 +128,8 @@ def mlp(x: jnp.ndarray, p: Params) -> jnp.ndarray:
 # jax.checkpoint'ed, so the backward pass re-computes per-layer
 # activations from the 27 carried layer inputs instead of stashing every
 # intermediate — the SO400M fwd+bwd stash (incl. 27x(B,256,4304) MLP
-# intermediates) otherwise contributes to an 17.6 GB HBM requirement on a
-# 15.75 GB chip (scripts/probe_train_compile.py). Inference paths trace
-# outside the scope and are unaffected.
+# intermediates) is otherwise most of the step's device memory. Inference
+# paths trace outside the scope and are unaffected.
 _ENCODER_REMAT = False
 
 
@@ -332,7 +328,8 @@ def get_image_features(
     # Barrier: without it XLA may duplicate the pooled computation into the
     # norm fusion and the divide fusion with different tilings, whose bf16
     # accumulation orders differ — the output would then be ~5e-4 off unit
-    # norm (observed on v5e). One materialization keeps norms exact.
+    # norm. That duplication is XLA's choice on any backend; one
+    # materialization keeps norms exact.
     pooled = jax.lax.optimization_barrier(pooled)
     norm = jnp.linalg.norm(pooled, axis=-1, keepdims=True)
     return pooled / jnp.maximum(norm, 1e-12)
@@ -469,7 +466,7 @@ def param_count(params: Params) -> int:
 
 
 def cast_params(params: Params, dtype: jnp.dtype) -> Params:
-    """Cast floating-point leaves to dtype (e.g. bf16 for HBM residency)."""
+    """Cast floating-point leaves to dtype (e.g. bf16 for device residency)."""
     def cast(x):
         if jnp.issubdtype(x.dtype, jnp.floating):
             return x.astype(dtype)

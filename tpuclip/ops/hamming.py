@@ -5,9 +5,9 @@ The reference's binary fallback fetches every BLOB into Python and computes
 binary "score" is the count of positions where both sign bits are 1,
 normalized by the dimension (NOT true Hamming similarity — kept for parity).
 
-TPU-native form: sign bits stored as int8 {0,1}; the score for all N rows is
-one int8 matmul on the MXU with int32 accumulation — exact integer math,
-~2 bytes/elem read. Top-k reuses the same machinery as the float path.
+Device form: sign bits stay packed 32 to a uint32 word (1 bit/dim); the
+score for all N rows is AND + popcount + sum, exact integer math. Top-k
+reuses the same ordering machinery as the float path.
 
 Also provides packed-uint8 Hamming distance (XOR+popcount) used by the
 duplicate filter when comparing pairs on host.
@@ -21,8 +21,6 @@ from typing import Optional, Tuple
 import jax
 import jax.numpy as jnp
 import numpy as np
-from jax.experimental import pallas as pl
-from jax.experimental.pallas import tpu as pltpu
 
 
 @functools.partial(jax.jit, static_argnames=("k",))
@@ -33,7 +31,7 @@ def binary_topk(
     mask: Optional[jnp.ndarray] = None,
 ) -> Tuple[jnp.ndarray, jnp.ndarray]:
     """Unpacked path: query_bits (Q, D) int8 {0,1}; matrix_bits_t (D, N) int8
-    {0,1} (feature-major). One int8 MXU matmul, exact int32 accumulation.
+    {0,1} (feature-major). One int8 matmul, exact int32 accumulation.
 
     Returns (matches (Q,k) int32, idx (Q,k) int32), descending, ties to the
     lowest index. matches/D is the reference's similarity score
@@ -65,7 +63,7 @@ def binary_topk_packed(
     """Packed path: query_words (Q, W) uint32/int32 packed bits;
     matrix_words (N, W) — 1 bit/dimension in HBM (144 B/row at 1152-d,
     vs 1152 B unpacked). matches = popcount(q & row) per row, exactly the
-    reference's binary dot (image_database.py:1621); VPU ``bitwise_count``
+    reference's binary dot (image_database.py:1621); ``bitwise_count``
     does the counting. Same ordering semantics as the other kernels.
     """
     n = matrix_words.shape[0]
@@ -81,389 +79,9 @@ def binary_topk_packed(
     return _merge_int_candidates(top_scores, top_idx.astype(jnp.int32), k_eff)
 
 
-# Wide tiles: the grouped q1 kernel views a (W, TILE_N) block as
-# (W, 8, TILE_N/8), and each vector op should span >= 16 vregs — at
-# TILE_N=2048 the (8, 256) working set is 2 vregs and instruction issue
-# dominates. Measured at 1M x 1152 rows on v5e: 6.33 ms (2048) ->
-# 2.34 ms (16384); 32768 fails to lower (VMEM block too large).
-BINARY_TILE_N = 16384
-_INT_SENTINEL = jnp.iinfo(jnp.int32).min
-
-
-def pad_words_t(words: np.ndarray, tile_n: int = BINARY_TILE_N):
-    """Host-side: (N, W) packed words → word-major (W, Np) padded to a tile
-    multiple. Same upload-time padding rationale as topk.pad_matrix_t.
-    Returns (words_t, n_valid)."""
-    wt = np.ascontiguousarray(words.T)
-    w, n = wt.shape
-    rem = (-n) % tile_n
-    if rem:
-        wt = np.concatenate([wt, np.zeros((w, rem), wt.dtype)], axis=1)
-    return wt, n
-
-
-def pad_words_grouped(words: np.ndarray, tile_n: int = BINARY_TILE_N):
-    """Host-side: (N, W) packed words → the sublane-grouped (W, 8, Np/8)
-    device layout. Returns (grouped, n_valid).
-
-    This is THE layout to keep resident on TPU: grouped element (w, g, j)
-    is words_t column g*Np/8 + j, a free C-order view on host — but on
-    device the 3D array's physical tiling puts the 8-group in sublanes,
-    which is exactly what the q1/scores kernels exploit AND a ~300 GB/s
-    retiling copy if converted per query. A ``jnp.reshape`` from (W, Np)
-    inside a jitted program measured +9.6 ms/query at 10M rows
-    (scripts/probe_shortlist_reshape.py); uploading the grouped view
-    directly costs nothing."""
-    wt, n = pad_words_t(words, tile_n)
-    w, n_pad = wt.shape
-    return wt.reshape(w, 8, n_pad // 8), n
-
-
-def _as_grouped(words: jnp.ndarray) -> Tuple[jnp.ndarray, int]:
-    """Normalize (W, Np) words_t or (W, 8, Np/8) grouped input → (grouped,
-    padded_n). The 2D→3D reshape is a physical retiling copy on TPU — pass
-    the grouped layout (pad_words_grouped) for device-resident matrices."""
-    if words.ndim == 3:
-        return words, words.shape[1] * words.shape[2]
-    w_words, n = words.shape
-    return jnp.reshape(words, (w_words, 8, n // 8)), n
-
-
-def _binary_topk_kernel(
-    q_ref, m_ref, nvalid_ref, scores_ref, idx_ref, *, k: int, k_pad: int, tile_n: int
-):
-    """One grid step: AND+popcount scores for a (W, TILE_N) word tile.
-
-    The packed layout reads 1 bit/dim from HBM (36 uint32 words per 1152-d
-    row vs 1152 int8 for the unpacked MXU form — 8x fewer bytes); scoring is
-    W broadcast AND+popcount+add passes on the VPU, which at W≈36 is far
-    below the HBM read time, so the scan runs at memory bandwidth. XLA's
-    lowering of the same einsum measured 4.4 ms/1M rows (33 GB/s effective)
-    — it materializes intermediates instead of streaming.
-    """
-    base = pl.program_id(0) * tile_n
-    w_words = m_ref.shape[0]
-    qp = q_ref.shape[0]
-
-    acc = jnp.zeros((qp, tile_n), jnp.int32)
-    for j in range(w_words):  # static unroll over words (D/32)
-        qw = q_ref[:, j][:, None]  # (Qp, 1) uint32
-        mw = m_ref[j, :][None, :]  # (1, TILE_N) uint32
-        acc = acc + jax.lax.population_count(jnp.bitwise_and(qw, mw)).astype(jnp.int32)
-
-    col = jax.lax.broadcasted_iota(jnp.int32, acc.shape, 1) + base
-    acc = jnp.where(col < nvalid_ref[0, 0], acc, _INT_SENTINEL)
-
-    bcol = jax.lax.broadcasted_iota(jnp.int32, acc.shape, 1)
-    s = acc
-    cols_s, cols_i = [], []
-    for _ in range(k):
-        best = jnp.max(s, axis=1)
-        best_idx = jnp.min(jnp.where(s == best[:, None], bcol, tile_n), axis=1)
-        cols_s.append(best)
-        cols_i.append(best_idx + base)
-        s = jnp.where(bcol == best_idx[:, None], _INT_SENTINEL, s)
-    out_s = jnp.stack(cols_s, axis=1)
-    out_i = jnp.stack(cols_i, axis=1)
-    if k_pad > k:
-        pad = ((0, 0), (0, k_pad - k))
-        out_s = jnp.pad(out_s, pad, constant_values=_INT_SENTINEL)
-        out_i = jnp.pad(out_i, pad, constant_values=jnp.iinfo(jnp.int32).max)
-    scores_ref[:] = out_s
-    idx_ref[:] = out_i
-
-
-@functools.partial(jax.jit, static_argnames=("k", "tile_n", "interpret"))
-def binary_topk_packed_pallas(
-    query_words: jnp.ndarray,
-    words_t: jnp.ndarray,
-    k: int,
-    n_valid: Optional[jnp.ndarray] = None,
-    tile_n: int = BINARY_TILE_N,
-    interpret: bool = False,
-) -> Tuple[jnp.ndarray, jnp.ndarray]:
-    """Streaming packed-binary top-k. query_words (Q, W) uint32; the matrix
-    in the grouped (W, 8, Np/8) device layout (preferred on TPU, see
-    pad_words_grouped) or (W, Np) words_t. Same ordering semantics as
-    binary_topk_packed (score desc, ties to lowest index)."""
-    q_count, w_words = query_words.shape
-    n = (
-        words_t.shape[1] * words_t.shape[2]
-        if words_t.ndim == 3
-        else words_t.shape[1]
-    )
-    if n_valid is None:
-        n_valid = jnp.asarray(n, jnp.int32)
-    k_eff = min(k, n) if n > 0 else 0
-    if k_eff == 0:
-        return (
-            jnp.zeros((q_count, 0), jnp.int32),
-            jnp.zeros((q_count, 0), jnp.int32),
-        )
-    assert n % tile_n == 0, "pad with pad_words_grouped at upload time"
-    if q_count == 1:
-        # Sublane-grouped single-query kernel: ~8x less VPU work (see
-        # _binary_topk_q1_kernel) — the interactive/serving case.
-        return _binary_topk_q1(
-            query_words, words_t, k_eff, n_valid, tile_n, interpret=interpret
-        )
-    if words_t.ndim == 3:
-        # Batched queries against the grouped-resident matrix: the (Qp, Np)
-        # 2D-block kernel below would need the words_t retiling this layout
-        # exists to avoid, so score via XLA on the grouped array instead
-        # (cheap f32 score flatten, exact top-k; rare path — batched binary
-        # searches on a binary-only DB).
-        return binary_topk_packed_t(
-            query_words, words_t, k_eff, n_valid=n_valid
-        )
-    num_tiles = n // tile_n
-
-    q_pad = (-q_count) % 8
-    if q_pad:
-        query_words = jnp.pad(query_words, ((0, q_pad), (0, 0)))
-    qp = query_words.shape[0]
-    nvalid_arr = jnp.reshape(n_valid.astype(jnp.int32), (1, 1))
-    k_pad = -(-k_eff // 128) * 128
-
-    kernel = functools.partial(
-        _binary_topk_kernel, k=k_eff, k_pad=k_pad, tile_n=tile_n
-    )
-    scores, idx = pl.pallas_call(
-        kernel,
-        grid=(num_tiles,),
-        in_specs=[
-            pl.BlockSpec((qp, w_words), lambda i: (0, 0), memory_space=pltpu.VMEM),
-            pl.BlockSpec((w_words, tile_n), lambda i: (0, i), memory_space=pltpu.VMEM),
-            pl.BlockSpec(memory_space=pltpu.SMEM),
-        ],
-        out_specs=[
-            pl.BlockSpec((qp, k_pad), lambda i: (0, i), memory_space=pltpu.VMEM),
-            pl.BlockSpec((qp, k_pad), lambda i: (0, i), memory_space=pltpu.VMEM),
-        ],
-        out_shape=[
-            jax.ShapeDtypeStruct((qp, num_tiles * k_pad), jnp.int32),
-            jax.ShapeDtypeStruct((qp, num_tiles * k_pad), jnp.int32),
-        ],
-        interpret=interpret,
-        cost_estimate=pl.CostEstimate(
-            flops=3 * qp * n * w_words,
-            bytes_accessed=n * w_words * 4 + qp * w_words * 4,
-            transcendentals=0,
-        ),
-    )(query_words, words_t, nvalid_arr)
-
-    merged_scores, merged_idx = _merge_int_candidates(scores, idx, k_eff)
-    return merged_scores[:q_count], merged_idx[:q_count]
-
-
-def _binary_topk_q1_kernel(
-    q_ref, nvalid_ref, m_ref, scores_ref, idx_ref, *, k: int, k_pad: int, tile_j: int, np8: int
-):
-    """Single-query step over a (W, 8, TILE_J) view of the word-major matrix.
-
-    The grouped view is a FREE C-order reshape of (W, Np): sublane g, lane j
-    holds original column g*Np/8 + j — so all 8 sublanes do real columns
-    even at Q=1 (the (Qp=8, TILE_N) form wastes 7/8 of the VPU on query
-    padding; measured 4.6 ms vs the HBM floor of ~0.3 ms at 1M rows). The
-    query rides in SMEM and broadcasts as scalars.
-    """
-    base_j = pl.program_id(0) * tile_j
-    w_words = m_ref.shape[0]
-
-    acc = jnp.zeros((8, tile_j), jnp.int32)
-    for w in range(w_words):  # static unroll over words (D/32)
-        acc = acc + jax.lax.population_count(
-            jnp.bitwise_and(m_ref[w], q_ref[0, w])
-        ).astype(jnp.int32)
-
-    g = jax.lax.broadcasted_iota(jnp.int32, acc.shape, 0)
-    jj = jax.lax.broadcasted_iota(jnp.int32, acc.shape, 1) + base_j
-    col = g * np8 + jj  # original column index
-    acc = jnp.where(col < nvalid_ref[0, 0], acc, _INT_SENTINEL)
-
-    s = acc
-    cols_s, cols_i = [], []
-    for _ in range(k):
-        best = jnp.max(s)
-        best_col = jnp.min(jnp.where(s == best, col, jnp.int32(2**31 - 1)))
-        cols_s.append(best)
-        cols_i.append(best_col)
-        s = jnp.where(col == best_col, _INT_SENTINEL, s)
-    out_s = jnp.stack(cols_s)[None, :]
-    out_i = jnp.stack(cols_i)[None, :]
-    if k_pad > k:
-        pad = ((0, 0), (0, k_pad - k))
-        out_s = jnp.pad(out_s, pad, constant_values=_INT_SENTINEL)
-        out_i = jnp.pad(out_i, pad, constant_values=jnp.iinfo(jnp.int32).max)
-    scores_ref[:] = out_s
-    idx_ref[:] = out_i
-
-
-@functools.partial(jax.jit, static_argnames=("k", "tile_n", "interpret"))
-def _binary_topk_q1(
-    query_words: jnp.ndarray,
-    words_t: jnp.ndarray,
-    k: int,
-    n_valid: jnp.ndarray,
-    tile_n: int,
-    interpret: bool = False,
-) -> Tuple[jnp.ndarray, jnp.ndarray]:
-    grouped, n = _as_grouped(words_t)
-    w_words = grouped.shape[0]
-    k_eff = min(k, n)
-    np8 = n // 8
-    tile_j = tile_n // 8
-    num_tiles = np8 // tile_j
-    q_smem = jnp.reshape(query_words, (1, w_words)).astype(jnp.uint32)
-    nvalid_arr = jnp.reshape(n_valid.astype(jnp.int32), (1, 1))
-    k_pad = -(-k_eff // 128) * 128
-
-    kernel = functools.partial(
-        _binary_topk_q1_kernel, k=k_eff, k_pad=k_pad, tile_j=tile_j, np8=np8
-    )
-    scores, idx = pl.pallas_call(
-        kernel,
-        grid=(num_tiles,),
-        in_specs=[
-            pl.BlockSpec(memory_space=pltpu.SMEM),
-            pl.BlockSpec(memory_space=pltpu.SMEM),
-            pl.BlockSpec((w_words, 8, tile_j), lambda i: (0, 0, i), memory_space=pltpu.VMEM),
-        ],
-        out_specs=[
-            pl.BlockSpec((1, k_pad), lambda i: (0, i), memory_space=pltpu.VMEM),
-            pl.BlockSpec((1, k_pad), lambda i: (0, i), memory_space=pltpu.VMEM),
-        ],
-        out_shape=[
-            jax.ShapeDtypeStruct((1, num_tiles * k_pad), jnp.int32),
-            jax.ShapeDtypeStruct((1, num_tiles * k_pad), jnp.int32),
-        ],
-        interpret=interpret,
-        cost_estimate=pl.CostEstimate(
-            flops=3 * n * w_words,
-            bytes_accessed=n * w_words * 4,
-            transcendentals=0,
-        ),
-    )(q_smem, nvalid_arr, grouped)
-
-    return _merge_int_candidates(scores, idx, k_eff)
-
-
-_NEG_INF_F32 = float("-inf")
-
-
-def _binary_scores_kernel(q_ref, nvalid_ref, m_ref, out_ref, *, tile_j: int, np8: int):
-    """Scores-only grouped q1 step: raw match counts as f32, no in-kernel
-    extraction (same redesign that took the int8 path from 4.2 to 2.6 ms —
-    ops/topk_int8._int8_scores_kernel). The (8, tile_j) accumulator writes
-    into an (8, np8) output whose C-order FLAT index equals the original
-    column (grouped element (g, j0) is column g*np8 + j0), so a downstream
-    reshape to (1, N) needs no index unmapping. Padding columns are -inf."""
-    base_j = pl.program_id(0) * tile_j
-    w_words = m_ref.shape[0]
-    acc = jnp.zeros((8, tile_j), jnp.int32)
-    for w in range(w_words):  # static unroll over words (D/32)
-        acc = acc + jax.lax.population_count(
-            jnp.bitwise_and(m_ref[w], q_ref[0, w])
-        ).astype(jnp.int32)
-    g = jax.lax.broadcasted_iota(jnp.int32, acc.shape, 0)
-    jj = jax.lax.broadcasted_iota(jnp.int32, acc.shape, 1) + base_j
-    col = g * np8 + jj
-    out_ref[:] = jnp.where(
-        col < nvalid_ref[0, 0], acc.astype(jnp.float32), _NEG_INF_F32
-    )
-
-
-@functools.partial(jax.jit, static_argnames=("tile_n", "interpret"))
-def binary_scores_pallas(
-    query_words: jnp.ndarray,
-    words_t: jnp.ndarray,
-    n_valid: Optional[jnp.ndarray] = None,
-    tile_n: int = BINARY_TILE_N,
-    interpret: bool = False,
-) -> jnp.ndarray:
-    """(1, W) packed query × word-major matrix — (W, 8, Np/8) grouped
-    (preferred on TPU, see pad_words_grouped) or (W, Np) words_t — →
-    (1, Np) f32 raw match counts (flat index == original column; padding
-    columns -inf)."""
-    grouped, n = _as_grouped(words_t)
-    w_words = grouped.shape[0]
-    assert n % tile_n == 0, "pad with pad_words_grouped at upload time"
-    if n_valid is None:
-        n_valid = jnp.asarray(n, jnp.int32)
-    np8 = n // 8
-    tile_j = tile_n // 8
-    num_tiles = np8 // tile_j
-    q_smem = jnp.reshape(query_words, (1, w_words)).astype(jnp.uint32)
-    nvalid_arr = jnp.reshape(n_valid.astype(jnp.int32), (1, 1))
-
-    kernel = functools.partial(_binary_scores_kernel, tile_j=tile_j, np8=np8)
-    scores = pl.pallas_call(
-        kernel,
-        grid=(num_tiles,),
-        in_specs=[
-            pl.BlockSpec(memory_space=pltpu.SMEM),
-            pl.BlockSpec(memory_space=pltpu.SMEM),
-            pl.BlockSpec((w_words, 8, tile_j), lambda i: (0, 0, i),
-                         memory_space=pltpu.VMEM),
-        ],
-        out_specs=[
-            pl.BlockSpec((8, tile_j), lambda i: (0, i), memory_space=pltpu.VMEM)
-        ],
-        out_shape=[jax.ShapeDtypeStruct((8, np8), jnp.float32)],
-        interpret=interpret,
-        cost_estimate=pl.CostEstimate(
-            flops=3 * n * w_words,
-            bytes_accessed=n * w_words * 4 + n * 4,
-            transcendentals=0,
-        ),
-    )(q_smem, nvalid_arr, grouped)[0]
-    return jnp.reshape(scores, (1, n))
-
-
-@functools.partial(jax.jit, static_argnames=("m", "tile_n", "interpret"))
-def binary_shortlist_q1(
-    query_words: jnp.ndarray,
-    words_t: jnp.ndarray,
-    m: int,
-    n_valid: Optional[jnp.ndarray] = None,
-    tile_n: int = BINARY_TILE_N,
-    interpret: bool = False,
-) -> Tuple[jnp.ndarray, jnp.ndarray]:
-    """Approximate top-``m`` binary shortlist: scores kernel +
-    ``lax.approx_max_k`` (TPU PartialReduce) instead of in-kernel
-    extraction or batched XLA top_k — measured 0.27 ms at 1M rows and
-    1.92 ms at 10M on the grouped-resident layout (92% of HBM peak) vs
-    0.95/17.1 ms for the XLA top-640 path (scripts/probe_binary_10m.py,
-    probe_shortlist_reshape.py). Coverage of the exact top-(m/2) is
-    ~99.4-99.7% on random bits; callers that need an exact-content
-    shortlist should use binary_topk_packed_t. Accepts the grouped
-    (W, 8, Np/8) device layout (preferred on TPU) or (W, Np) words_t.
-    Returns ((1, m) f32 match counts, (1, m) i32 columns), ordered
-    (score desc, idx asc); padding/overflow lanes carry -inf."""
-    n = (
-        words_t.shape[1] * words_t.shape[2]
-        if words_t.ndim == 3
-        else words_t.shape[1]
-    )
-    m_eff = min(m, n)
-    scores = binary_scores_pallas(
-        query_words, words_t, n_valid=n_valid, tile_n=tile_n,
-        interpret=interpret,
-    )
-    s, i = jax.lax.approx_max_k(scores, m_eff)
-    i = i.astype(jnp.int32)
-    # deterministic (score desc, idx asc) order on the small shortlist;
-    # -inf entries sort last (-(-inf) = +inf)
-    order = jnp.lexsort((i, -s), axis=-1)
-    return (
-        jnp.take_along_axis(s, order, axis=1),
-        jnp.take_along_axis(i, order, axis=1),
-    )
-
-
 def _merge_int_candidates(scores, idx, k_eff):
     """Exact merge for INTEGER-scored candidates: popcount scores tie
-    heavily, and ``lax.top_k`` breaks ties by candidate position (tile
+    heavily, and ``lax.top_k`` breaks ties by candidate position (shard
     order), not original index — a full (score desc, idx asc) sort of the
     small candidate buffer is required for reference-exact ordering."""
     # Clamp the INT32_MIN sentinel before negating (its negation wraps back
@@ -474,48 +92,6 @@ def _merge_int_candidates(scores, idx, k_eff):
         jnp.take_along_axis(scores, order, axis=1),
         jnp.take_along_axis(idx, order, axis=1),
     )
-
-
-@functools.partial(jax.jit, static_argnames=("k",))
-def binary_topk_packed_t(
-    query_words: jnp.ndarray,
-    words_t: jnp.ndarray,
-    k: int,
-    mask: Optional[jnp.ndarray] = None,
-    n_valid: Optional[jnp.ndarray] = None,
-) -> Tuple[jnp.ndarray, jnp.ndarray]:
-    """XLA path over the word-major layout — (W, 8, Np/8) grouped (preferred
-    on TPU) or (W, Np) words_t (masked/filtered searches share the pallas
-    kernel's resident matrix instead of re-uploading)."""
-    if words_t.ndim == 3:
-        n = words_t.shape[1] * words_t.shape[2]
-    else:
-        n = words_t.shape[1]
-    k_eff = min(k, n) if n > 0 else 0
-    if k_eff == 0:
-        q = query_words.shape[0]
-        return jnp.zeros((q, 0), jnp.int32), jnp.zeros((q, 0), jnp.int32)
-    if words_t.ndim == 3:
-        # Grouped layout: score in place, then flatten the (8, Np/8) score
-        # block — its C-order flat index IS the original column (see
-        # _binary_scores_kernel), and retiling N f32 scores is ~32x cheaper
-        # than retiling the W-word matrix.
-        anded = jnp.bitwise_and(
-            query_words[:, :, None, None], words_t[None, :, :, :]
-        )
-        scores = jnp.sum(
-            jax.lax.population_count(anded).astype(jnp.int32), axis=1
-        ).reshape(query_words.shape[0], n)
-    else:
-        anded = jnp.bitwise_and(query_words[:, :, None], words_t[None, :, :])
-        scores = jnp.sum(jax.lax.population_count(anded).astype(jnp.int32), axis=1)
-    if mask is not None:
-        scores = jnp.where(mask[None, :] < 0, _INT_SENTINEL, scores)
-    if n_valid is not None:
-        col = jax.lax.broadcasted_iota(jnp.int32, (1, n), 1)
-        scores = jnp.where(col < n_valid, scores, _INT_SENTINEL)
-    top_scores, top_idx = jax.lax.top_k(scores, k_eff)
-    return _merge_int_candidates(top_scores, top_idx.astype(jnp.int32), k_eff)
 
 
 def pack_bits_to_words(bits01: np.ndarray) -> np.ndarray:
@@ -542,8 +118,8 @@ def pack_bits_to_words_device(bits01: jnp.ndarray) -> jnp.ndarray:
     (N, ceil(D/32)) uint32, bit-identical to the host packer (verified in
     tests), so device-packed matrices interoperate with host-packed queries.
     Used when the sign bits already live on device (e.g. derived from a
-    resident embedding matrix) — packing 1M rows on this class of host costs
-    tens of seconds of numpy; on the VPU it is a fused multiply-reduce."""
+    resident embedding matrix): on device the packing is one fused
+    multiply-reduce instead of a host numpy pass over every row."""
     n, d = bits01.shape
     pad = (-d) % 32
     if pad:

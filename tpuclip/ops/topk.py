@@ -1,27 +1,16 @@
-"""Fused matmul + top-k over an HBM-resident embedding matrix.
+"""Matmul + top-k over a device-resident embedding matrix.
 
-This is the TPU-native replacement for sqlite-vec's brute-force
+The device replacement for sqlite-vec's brute-force
 ``vec_distance_cosine ... ORDER BY distance LIMIT k`` scan
 (image_database.py:1564-1574).
 
-**Layout**: the matrix is stored TRANSPOSED, (D, N) — "feature-major". The
-per-tile product is then ``q (Q, D) @ m_tile (D, TILE_N)`` in the MXU's
-native orientation; with row-major (N, D) tiles Mosaic must transpose every
-tile in VMEM, which measured 2x slower end-to-end on v5e (13.2 ms → 7.2 ms
-for 1M x 1152 bf16).
+**Layout**: the float matrix is stored TRANSPOSED, (D, N) — "feature-major",
+pre-padded with zero columns (:func:`pad_matrix_t`) and masked past
+``n_valid``. :func:`topk_xla` materializes the (Q, N) scores and selects with
+``jax.lax.top_k``.
 
-Two implementations:
-- :func:`topk_xla` — full score materialization + ``jax.lax.top_k``; used
-  when a score mask (folder filter) is present or k is large.
-- :func:`topk_pallas` — streams N-tiles of the transposed matrix through
-  VMEM: each grid step computes the (Q, TILE_N) score block on the MXU and
-  immediately reduces it to k local candidates via iterative max-and-mask,
-  so the full (Q, N) score matrix never materializes in HBM; the matrix is
-  read exactly once at HBM bandwidth. A final ``lax.top_k`` merges the
-  (num_tiles * k) candidates.
-
-Ordering semantics: descending score; ties resolve to the lowest index first
-(both paths), matching a stable ``ORDER BY distance ASC`` scan.
+Ordering semantics: descending score; ties resolve to the lowest index first,
+matching a stable ``ORDER BY distance ASC`` scan.
 """
 
 from __future__ import annotations
@@ -31,149 +20,9 @@ from typing import Optional, Tuple
 
 import jax
 import jax.numpy as jnp
-from jax.experimental import pallas as pl
-from jax.experimental.pallas import tpu as pltpu
 
 DEFAULT_TILE_N = 2048
 _NEG_INF = float("-inf")
-
-
-def _iterative_topk_kernel(
-    q_ref, m_ref, nvalid_ref, scores_ref, idx_ref, *, k: int, k_pad: int, tile_n: int
-):
-    """One grid step: scores for this (D, TILE_N) matrix tile, local top-k.
-
-    q_ref: (Qp, D) queries (VMEM, whole)
-    m_ref: (D, TILE_N) transposed-matrix tile (VMEM)
-    nvalid_ref: (1, 1) SMEM scalar — number of valid columns overall
-    scores_ref/idx_ref: (Qp, k_pad) output block for this tile
-    """
-    tile_idx = pl.program_id(0)
-    base = tile_idx * tile_n
-
-    # (Qp, TILE_N) scores, fp32 accumulation, MXU-native orientation.
-    scores = jnp.dot(q_ref[:], m_ref[:], preferred_element_type=jnp.float32)
-
-    # Mask columns past n_valid (zero padding and tail).
-    col = jax.lax.broadcasted_iota(jnp.int32, scores.shape, 1) + base
-    n_valid = nvalid_ref[0, 0]
-    scores = jnp.where(col < n_valid, scores, _NEG_INF)
-
-    # Iterative max-and-mask: k is static and small (large k falls back to
-    # the XLA path in cosine_topk), so unroll in Python and collect the
-    # selected columns in registers, writing each output block once.
-    bcol = jax.lax.broadcasted_iota(jnp.int32, scores.shape, 1)
-    s = scores
-    cols_s = []
-    cols_i = []
-    for _ in range(k):
-        best = jnp.max(s, axis=1)  # (Qp,)
-        # lowest index wins ties: first position equal to the max
-        best_idx = jnp.min(jnp.where(s == best[:, None], bcol, tile_n), axis=1)
-        cols_s.append(best)
-        cols_i.append(best_idx + base)
-        s = jnp.where(bcol == best_idx[:, None], _NEG_INF, s)
-    out_s = jnp.stack(cols_s, axis=1)
-    out_i = jnp.stack(cols_i, axis=1)
-    if k_pad > k:
-        # Output blocks must be 128-lane aligned; pad with sentinels that can
-        # never win the merge.
-        pad = ((0, 0), (0, k_pad - k))
-        out_s = jnp.pad(out_s, pad, constant_values=_NEG_INF)
-        out_i = jnp.pad(out_i, pad, constant_values=jnp.iinfo(jnp.int32).max)
-    scores_ref[:] = out_s
-    idx_ref[:] = out_i
-
-
-def _pad_cols(x: jnp.ndarray, multiple: int) -> jnp.ndarray:
-    n = x.shape[1]
-    rem = (-n) % multiple
-    if rem:
-        x = jnp.pad(x, ((0, 0), (0, rem)))
-    return x
-
-
-def _final_merge(scores, idx, k_eff):
-    """Merge per-tile candidates: top-k then exact (score desc, idx asc)."""
-    merged_scores, merged_pos = jax.lax.top_k(scores, k_eff)
-    merged_idx = jnp.take_along_axis(idx, merged_pos, axis=1)
-    order = jnp.lexsort((merged_idx, -merged_scores), axis=-1)
-    return (
-        jnp.take_along_axis(merged_scores, order, axis=1),
-        jnp.take_along_axis(merged_idx, order, axis=1),
-    )
-
-
-@functools.partial(jax.jit, static_argnames=("k", "tile_n", "interpret"))
-def topk_pallas(
-    queries: jnp.ndarray,
-    matrix_t: jnp.ndarray,
-    k: int,
-    n_valid: Optional[jnp.ndarray] = None,
-    tile_n: int = DEFAULT_TILE_N,
-    interpret: bool = False,
-) -> Tuple[jnp.ndarray, jnp.ndarray]:
-    """Fused top-k. queries (Q, D), matrix_t (D, N) → (scores, idx), (Q, k).
-
-    ``matrix_t`` should already sit on device (bf16 recommended); columns
-    beyond ``n_valid`` are ignored.
-    """
-    q_count, d = queries.shape
-    n = matrix_t.shape[1]
-    if n_valid is None:
-        n_valid = jnp.asarray(n, jnp.int32)
-    k_eff = min(k, n) if n > 0 else 0
-    if k_eff == 0:
-        return (
-            jnp.zeros((q_count, 0), jnp.float32),
-            jnp.zeros((q_count, 0), jnp.int32),
-        )
-
-    tile = min(tile_n, max(256, 1 << (n - 1).bit_length())) if n < tile_n else tile_n
-    # PERF: pad is a full-matrix copy — callers on the hot path should upload
-    # the matrix pre-padded to a tile multiple (see pad_matrix_t /
-    # DeviceIndex) so this is a no-op.
-    matrix_t = _pad_cols(matrix_t, tile)
-    n_padded = matrix_t.shape[1]
-    num_tiles = n_padded // tile
-
-    # Pad queries to the fp32 sublane count so the block layout is native.
-    q_pad = (-q_count) % 8
-    if q_pad:
-        queries = jnp.pad(queries, ((0, q_pad), (0, 0)))
-    qp = queries.shape[0]
-
-    queries = queries.astype(matrix_t.dtype)
-    nvalid_arr = jnp.reshape(n_valid.astype(jnp.int32), (1, 1))
-
-    k_pad = -(-k_eff // 128) * 128  # 128-lane aligned output blocks
-    kernel = functools.partial(_iterative_topk_kernel, k=k_eff, k_pad=k_pad, tile_n=tile)
-    scores, idx = pl.pallas_call(
-        kernel,
-        grid=(num_tiles,),
-        in_specs=[
-            pl.BlockSpec((qp, d), lambda i: (0, 0), memory_space=pltpu.VMEM),
-            pl.BlockSpec((d, tile), lambda i: (0, i), memory_space=pltpu.VMEM),
-            pl.BlockSpec(memory_space=pltpu.SMEM),
-        ],
-        out_specs=[
-            pl.BlockSpec((qp, k_pad), lambda i: (0, i), memory_space=pltpu.VMEM),
-            pl.BlockSpec((qp, k_pad), lambda i: (0, i), memory_space=pltpu.VMEM),
-        ],
-        out_shape=[
-            jax.ShapeDtypeStruct((qp, num_tiles * k_pad), jnp.float32),
-            jax.ShapeDtypeStruct((qp, num_tiles * k_pad), jnp.int32),
-        ],
-        interpret=interpret,
-        cost_estimate=pl.CostEstimate(
-            flops=2 * qp * n_padded * d,
-            bytes_accessed=n_padded * d * matrix_t.dtype.itemsize + qp * d * 4,
-            transcendentals=0,
-        ),
-    )(queries, matrix_t, nvalid_arr)
-
-    merged_scores, merged_idx = _final_merge(scores, idx, k_eff)
-    return merged_scores[:q_count], merged_idx[:q_count]
 
 
 @functools.partial(jax.jit, static_argnames=("k",))
@@ -198,8 +47,12 @@ def topk_xla(
             jnp.zeros((queries.shape[0], 0), jnp.float32),
             jnp.zeros((queries.shape[0], 0), jnp.int32),
         )
+    # An f32 matrix is scored in full f32 (a GPU would otherwise run the
+    # product in TF32, ~3 decimal digits); a bf16 matrix is exact in bf16.
     scores = jnp.dot(
-        queries.astype(matrix_t.dtype), matrix_t, preferred_element_type=jnp.float32
+        queries.astype(matrix_t.dtype), matrix_t,
+        preferred_element_type=jnp.float32,
+        precision=jax.lax.Precision.HIGHEST,
     )
     if mask is not None:
         scores = scores + mask[None, :]
@@ -231,66 +84,5 @@ def pad_matrix_t(matrix_t, tile_n: int = DEFAULT_TILE_N):
     return matrix_t, n
 
 
-@functools.partial(jax.jit, static_argnames=("k", "use_pallas"))
-def _cosine_topk_packed(queries, matrix_t, k, n_valid, use_pallas):
-    if use_pallas:
-        s, i = topk_pallas(queries, matrix_t, k, n_valid=n_valid)
-    else:
-        s, i = topk_xla(queries, matrix_t, k, n_valid=n_valid)
-    # One host fetch instead of two: int32 indices bitcast into the float
-    # payload. Matters when each device→host transfer has fixed latency
-    # (remote-attached TPUs); harmless elsewhere.
-    return jnp.stack([s, jax.lax.bitcast_convert_type(i, jnp.float32)], axis=0)
-
-
-def cosine_topk_single_fetch(
-    queries: jnp.ndarray,
-    matrix_t: jnp.ndarray,
-    k: int,
-    n_valid: Optional[jnp.ndarray] = None,
-    use_pallas: Optional[bool] = None,
-) -> Tuple["np.ndarray", "np.ndarray"]:  # noqa: F821 - numpy outputs
-    """Unmasked top-k with scores+indices returned in ONE device fetch."""
-    import numpy as np
-
-    if use_pallas is None:
-        use_pallas = (
-            k <= 128
-            and jax.default_backend() == "tpu"
-            and matrix_t.shape[1] >= DEFAULT_TILE_N
-        )
-    if n_valid is None:
-        n_valid = jnp.asarray(matrix_t.shape[1], jnp.int32)
-    packed = np.asarray(
-        _cosine_topk_packed(queries, matrix_t, k, n_valid, bool(use_pallas))
-    )
-    scores = packed[0]
-    idx = packed[1].view(np.int32)
-    return scores, idx
-
-
-def cosine_topk(
-    queries: jnp.ndarray,
-    matrix_t: jnp.ndarray,
-    k: int,
-    mask: Optional[jnp.ndarray] = None,
-    n_valid: Optional[jnp.ndarray] = None,
-    use_pallas: Optional[bool] = None,
-    interpret: bool = False,
-) -> Tuple[jnp.ndarray, jnp.ndarray]:
-    """Dispatch: Pallas fused kernel on TPU (no mask), XLA otherwise.
-
-    ``matrix_t`` is always the (D, N) transposed layout, ideally pre-padded
-    (see :func:`pad_matrix_t`) with ``n_valid`` marking real columns. ``mask``
-    must cover the padded width and be -inf over padding.
-    """
-    if use_pallas is None:
-        use_pallas = (
-            mask is None
-            and k <= 128  # unrolled max-and-mask; larger k → sort-based path
-            and jax.default_backend() == "tpu"
-            and matrix_t.shape[1] >= DEFAULT_TILE_N
-        )
-    if use_pallas and mask is None:
-        return topk_pallas(queries, matrix_t, k, n_valid=n_valid, interpret=interpret)
-    return topk_xla(queries, matrix_t, k, mask=mask, n_valid=n_valid)
+# The public search entry point: every platform scores through XLA.
+cosine_topk = topk_xla

@@ -1,30 +1,39 @@
 """int8 quantized fused search.
 
-The bf16 scan is HBM-bandwidth-bound (the matrix is read once per query), so
-halving bytes halves latency: vectors quantize to symmetric per-vector int8
-(unit-norm rows → scales are near-uniform), the MXU computes exact int32
-dots, and scores rescale in fp32. Measured ranking agreement with the bf16
-scan is validated in tests (top-k recall on random unit vectors). Combined
-with the fused exact rescore (:func:`topk_int8_rerank_fused`) this is the
-DEFAULT search path on TPU (results bit-equal to the bf16 scan, ~1.5x
-faster); `TPUCLIP_SEARCH_PRECISION=bf16` restores the plain full scan.
+The full scan is bound by device-memory bandwidth (the matrix is read once
+per query), so halving bytes halves its time: vectors quantize to symmetric
+per-vector int8 (unit-norm rows → scales are near-uniform), the scan
+computes exact int32 dots, and scores rescale in f32. Combined with the
+fused exact rescore (:func:`topk_int8_rerank_fused`) this is the DEFAULT
+search path on the GPU (``platform.default_precision``): returned scores are
+the full-precision rows' exact dots; `TPUCLIP_SEARCH_PRECISION=bf16`
+restores the plain full scan.
 
-Layout matches tpuclip.ops.topk: matrix transposed (D, N), padded columns,
-n_valid masking, (score desc, idx asc) ordering.
+**Layout**: the int8 matrix is ROW-major, (N, D), pre-padded with zero rows
+to a multiple of :data:`INT8_TILE_N` and masked past ``n_valid`` — the same
+layout as the full-precision rescore rows. Both operands of the int8 product
+are then contiguous along D, the layout the GPU's int8 tensor-core products
+take without a transpose. Ordering: (score desc, idx asc).
+
+**Scan kernel**: :func:`int8_scores` writes the scaled, masked f32 (Q, N)
+scores once. On the GPU it is :func:`int8_scores_triton`, a Pallas kernel
+compiled through Triton; elsewhere :func:`_int8_scores_xla`. Both accumulate
+in int32, so their scores are bit-identical.
 """
 
 from __future__ import annotations
 
 import functools
+import os
 from typing import Optional, Tuple
 
 import jax
 import jax.numpy as jnp
 import numpy as np
 from jax.experimental import pallas as pl
-from jax.experimental.pallas import tpu as pltpu
+from jax.experimental.pallas import triton as plgpu
 
-from tpuclip.ops.topk import _final_merge
+from tpuclip import platform
 
 _NEG_INF = float("-inf")
 
@@ -36,10 +45,11 @@ def round_f32_to_bf16_bits(x: jnp.ndarray) -> jnp.ndarray:
     ``x.astype(bf16).astype(f32)`` is NOT equivalent under jit: XLA's
     excess-precision rule elides a downcast that only feeds an upcast (or a
     dot's internal f32 upcast), silently substituting the unrounded input.
-    When a computation must use exactly the bf16-rounded value — e.g. the
-    fused-rerank rescore reproducing the bf16 scan's scores — the rounding
-    has to be expressed as integer arithmetic XLA cannot fold away.
-    Finite inputs only (queries here are finite by construction)."""
+    That holds on every XLA backend, the GPU included. When a computation
+    must use exactly the bf16-rounded value — e.g. the fused-rerank rescore
+    reproducing the bf16 scan's scores — the rounding has to be expressed as
+    integer arithmetic XLA cannot fold away. Finite inputs only (queries
+    here are finite by construction)."""
     u = jax.lax.bitcast_convert_type(x, jnp.uint32)
     lsb = (u >> 16) & jnp.uint32(1)
     u = u + jnp.uint32(0x7FFF) + lsb
@@ -47,12 +57,27 @@ def round_f32_to_bf16_bits(x: jnp.ndarray) -> jnp.ndarray:
     return jax.lax.bitcast_convert_type(u, jnp.float32)
 
 
-def quantize_matrix_t(matrix_t: np.ndarray) -> Tuple[np.ndarray, np.ndarray]:
-    """(D, N) float → (int8 (D, N), scales (N,) float32), symmetric per-column."""
-    m = np.asarray(matrix_t, np.float32)
-    scales = np.abs(m).max(axis=0) / 127.0
+# Row padding multiple of the int8 matrix: a multiple of every Triton
+# block_n, so any padded matrix takes the kernel.
+INT8_TILE_N = 1024
+
+
+def pad_rows(rows: np.ndarray, tile_n: int = INT8_TILE_N) -> Tuple[np.ndarray, int]:
+    """Host-side: pad (N, D) with zero rows to a tile multiple. Returns
+    (padded, n_valid); done once at upload so queries never copy."""
+    n = rows.shape[0]
+    rem = (-n) % tile_n
+    if rem:
+        rows = np.concatenate([rows, np.zeros((rem,) + rows.shape[1:], rows.dtype)])
+    return rows, n
+
+
+def quantize_rows(rows: np.ndarray) -> Tuple[np.ndarray, np.ndarray]:
+    """(N, D) float → (int8 (N, D), scales (N,) float32), symmetric per row."""
+    m = np.asarray(rows, np.float32)
+    scales = np.abs(m).max(axis=1) / 127.0
     scales = np.where(scales == 0, 1.0, scales).astype(np.float32)
-    q = np.clip(np.rint(m / scales[None, :]), -127, 127).astype(np.int8)
+    q = np.clip(np.rint(m / scales[:, None]), -127, 127).astype(np.int8)
     return q, scales
 
 
@@ -67,16 +92,15 @@ def quantize_query(q: np.ndarray) -> Tuple[np.ndarray, float]:
 def derive_int8_matrix_device(
     rows: jnp.ndarray, n_pad: int
 ) -> Tuple[jnp.ndarray, jnp.ndarray]:
-    """Derive the transposed int8 scan matrix + per-vector scales ON DEVICE
-    from the resident full-precision rows copy: (N, D) bf16/f32 rows →
-    ((D, n_pad) int8, (n_pad,) f32 scales), zero/one padding past N.
+    """Derive the int8 scan matrix + per-vector scales ON DEVICE from the
+    resident full-precision rows copy: (N, D) bf16/f32 rows →
+    ((n_pad, D) int8, (n_pad,) f32 scales), zero/one padding past N.
 
     When the device-rerank copy is resident anyway (the production int8
-    configuration), this replaces the host-side ``quantize_matrix_t`` +
-    second upload: at 1M x 1152 the host pays several numpy passes over a
-    4.6 GB fp32 matrix plus a 1.15 GB transfer, all of which is a
-    sub-second jitted transpose/quantize on the chip. The int8 values come
-    from the storage-dtype rows rather than the fp32 originals — a
+    configuration), this replaces the host-side ``quantize_rows`` + second
+    upload: the host would otherwise pay several numpy passes over the f32
+    matrix plus one more transfer. The int8 values come from the
+    storage-dtype rows rather than the fp32 originals — a
     sub-quantization-step difference that only perturbs shortlist
     selection; exact scores still come from the fused rescore.
     """
@@ -85,9 +109,9 @@ def derive_int8_matrix_device(
     scales = jnp.max(jnp.abs(mf), axis=1) / 127.0          # (N,) per-vector
     scales = jnp.where(scales == 0, 1.0, scales)
     q = jnp.clip(jnp.round(mf / scales[:, None]), -127, 127).astype(jnp.int8)
-    q_t = jnp.zeros((d, n_pad), jnp.int8).at[:, :n].set(q.T)
+    q_p = jnp.zeros((n_pad, d), jnp.int8).at[:n].set(q)
     scales_p = jnp.ones((n_pad,), jnp.float32).at[:n].set(scales)
-    return q_t, scales_p
+    return q_p, scales_p
 
 
 def quantize_queries_device(q_f32: jnp.ndarray) -> Tuple[jnp.ndarray, jnp.ndarray]:
@@ -100,319 +124,113 @@ def quantize_queries_device(q_f32: jnp.ndarray) -> Tuple[jnp.ndarray, jnp.ndarra
     return qi, qs
 
 
-def _int8_topk_kernel(
-    q_ref, m_ref, scales_ref, meta_ref, scores_ref, idx_ref,
-    *, k: int, k_pad: int, tile_n: int, out_rows: int,
-):
-    """q_ref (Qp, D) int8; m_ref (D, TILE_N) int8; scales_ref (1, TILE_N) f32;
-    meta_ref SMEM [(1,1) n_valid int32]; outputs (out_rows, k_pad).
+# Triton tiles, chosen by a sweep on an H100 at 1M x 1152, Q in {1, 16, 64}
+# (PERF.md). block_q is the padded query count up to 64; Triton's dot needs
+# at least 16 rows, so Q pads to 16.
+_BLOCK_N = 64
+_BLOCK_K = 128
+_NUM_WARPS = 4
+_NUM_STAGES = 4
+_MAX_BLOCK_Q = 64
 
-    Qp is padded to the int8 sublane count (32) for the matmul, but the VPU
-    top-k loop only runs over the first ``out_rows`` rows — the padding rows
-    otherwise quadruple the reduction work, which dominates the per-tile
-    cost once the scan is near the bandwidth roofline.
-    """
-    tile_idx = pl.program_id(0)
-    base = tile_idx * tile_n
 
-    acc = jax.lax.dot_general(
-        q_ref[:], m_ref[:],
-        dimension_numbers=(((1,), (0,)), ((), ())),
-        preferred_element_type=jnp.int32,
+def _int8_scores_kernel(q_ref, m_ref, s_ref, nv_ref, o_ref, *, block_q, block_n, block_k):
+    """One (block_q, block_n) score tile: the int8 product accumulates in
+    int32 over D in block_k steps, then the row scales and the n_valid mask
+    apply and the f32 tile is written once."""
+    qi = pl.program_id(0)
+    ni = pl.program_id(1)
+    rows = pl.ds(ni * block_n, block_n)
+
+    def body(kk, acc):
+        cols = pl.ds(kk * block_k, block_k)
+        q = q_ref[pl.ds(qi * block_q, block_q), cols]
+        m = m_ref[rows, cols]
+        return acc + pl.dot(q, m, trans_b=True)
+
+    acc = jax.lax.fori_loop(
+        0, q_ref.shape[1] // block_k, body,
+        jnp.zeros((block_q, block_n), jnp.int32),
     )
-    scores = acc[:out_rows].astype(jnp.float32) * scales_ref[0, :][None, :]
-
-    col = jax.lax.broadcasted_iota(jnp.int32, scores.shape, 1) + base
-    n_valid = meta_ref[0, 0]
-    scores = jnp.where(col < n_valid, scores, _NEG_INF)
-
-    bcol = jax.lax.broadcasted_iota(jnp.int32, scores.shape, 1)
-    s = scores
-    cols_s, cols_i = [], []
-    for _ in range(k):
-        best = jnp.max(s, axis=1)
-        best_idx = jnp.min(jnp.where(s == best[:, None], bcol, tile_n), axis=1)
-        cols_s.append(best)
-        cols_i.append(best_idx + base)
-        s = jnp.where(bcol == best_idx[:, None], _NEG_INF, s)
-    out_s = jnp.stack(cols_s, axis=1)
-    out_i = jnp.stack(cols_i, axis=1)
-    if k_pad > k:
-        pad = ((0, 0), (0, k_pad - k))
-        out_s = jnp.pad(out_s, pad, constant_values=_NEG_INF)
-        out_i = jnp.pad(out_i, pad, constant_values=jnp.iinfo(jnp.int32).max)
-    scores_ref[:] = out_s
-    idx_ref[:] = out_i
-
-
-# 6144 measured faster than 4096 (2.49 vs 2.81 ms at 1M rows on v5e): fewer
-# grid steps amortize the per-tile overhead; 1152x6144 int8 = 7.1 MB still
-# double-buffers inside the 16 MB VMEM. 8192 does not fit (2x9.4 MB).
-INT8_TILE_N = 6144
-
-# Packed-key extraction: the tile-local lane index rides in the low bits of
-# a monotonic int32 key, so the per-candidate VPU loop needs only a
-# max-reduce + mask pass (no index-locate pass). 13 bits covers lanes up to
-# 8191 >= INT8_TILE_N-1.
-_IDX_BITS = 13
-_IDX_MASK = (1 << _IDX_BITS) - 1
-# Largest int32 key a masked (-inf) lane can produce: -inf bits 0xFF800000
-# sign-flip to u=0x007FFFFF, truncate + max lane term + final sign-bias →
-# 0x807FFFFF. Any finite score keys strictly above this; the k_pad padding
-# sentinel INT32_MIN is below it. "key <= this" ⇒ invalid candidate.
-_NEGINF_KEY_MAX = -2139095041  # int32(0x807FFFFF)
-
-
-def _pack_keys(scores: jnp.ndarray) -> jnp.ndarray:
-    """f32 scores → monotonic int32 keys carrying the lane index.
-
-    Standard unsigned-order float mapping (flip all bits of negatives, flip
-    only the sign bit of non-negatives), truncate the low ``_IDX_BITS``
-    (2^-11 relative precision — far below the ~1e-3 int8 quantization noise
-    already present in shortlist selection), OR in ``_IDX_MASK - lane`` so
-    truncation ties break to the LOWEST lane, and bias back to signed so
-    ``jnp.max`` orders correctly. Keys are unique per lane, so the
-    extraction loop's equality mask removes exactly one lane per round."""
-    u = jax.lax.bitcast_convert_type(scores, jnp.uint32)
-    flip = jnp.where(
-        (u >> 31) == 1, jnp.uint32(0xFFFFFFFF), jnp.uint32(0x80000000)
+    scores = acc.astype(jnp.float32) * s_ref[rows][None, :]
+    col = ni * block_n + jnp.arange(block_n)
+    o_ref[pl.ds(qi * block_q, block_q), rows] = jnp.where(
+        col[None, :] < nv_ref[0], scores, _NEG_INF
     )
-    u = u ^ flip
-    lane = (
-        jax.lax.broadcasted_iota(jnp.uint32, scores.shape, 1)
-        & jnp.uint32(_IDX_MASK)
-    )
-    key = (u & jnp.uint32(~_IDX_MASK & 0xFFFFFFFF)) | (jnp.uint32(_IDX_MASK) - lane)
-    return jax.lax.bitcast_convert_type(key ^ jnp.uint32(0x80000000), jnp.int32)
 
 
-def _int8_packed_kernel(
-    q_ref, m_ref, scales_ref, meta_ref, keys_ref,
-    *, k: int, k_pad: int, tile_n: int, out_rows: int,
-):
-    """Packed-key variant of :func:`_int8_topk_kernel`: emits int32 keys
-    (truncated score | tile-local index) instead of (score, idx) pairs.
-    Measured 10–14% faster end-to-end at 1M rows (the max-and-mask loop
-    halves its VPU passes; scripts/probe_topk_int8.py: 5.79 vs 6.47 ms at
-    k_tile=80, shortlist overlap 1.0000@512). Only the FUSED rescore path
-    uses it — exact scores come from the rescore, so the key truncation
-    never reaches a returned score."""
-    base = pl.program_id(0) * tile_n
-    acc = jax.lax.dot_general(
-        q_ref[:], m_ref[:],
-        dimension_numbers=(((1,), (0,)), ((), ())),
-        preferred_element_type=jnp.int32,
-    )
-    scores = acc[:out_rows].astype(jnp.float32) * scales_ref[0, :][None, :]
-    col = jax.lax.broadcasted_iota(jnp.int32, scores.shape, 1) + base
-    scores = jnp.where(col < meta_ref[0, 0], scores, _NEG_INF)
-    keys = _pack_keys(scores)
-    outs = []
-    for _ in range(k):
-        best = jnp.max(keys, axis=1)
-        outs.append(best)
-        keys = jnp.where(keys == best[:, None], jnp.iinfo(jnp.int32).min, keys)
-    out = jnp.stack(outs, axis=1)
-    if k_pad > k:
-        out = jnp.pad(
-            out, ((0, 0), (0, k_pad - k)),
-            constant_values=jnp.iinfo(jnp.int32).min,
-        )
-    keys_ref[:] = out
+def _triton_block_k(d: int) -> Optional[int]:
+    """Largest power-of-two K step (16..``_BLOCK_K``) dividing ``d``."""
+    bk = _BLOCK_K
+    while bk >= 16:
+        if d % bk == 0:
+            return bk
+        bk //= 2
+    return None
 
 
-def _int8_candidates_packed(
+def triton_scan_fits(n: int, d: int, block_n: int = _BLOCK_N) -> bool:
+    """Whether the Triton kernel takes an (n, d) int8 matrix: n a multiple
+    of ``block_n`` (``INT8_TILE_N`` padding guarantees it) and d a multiple
+    of 16."""
+    return n > 0 and n % block_n == 0 and _triton_block_k(d) is not None
+
+
+def int8_scores_triton(
     q_int8: jnp.ndarray,
-    matrix_int8_t: jnp.ndarray,
-    scales: jnp.ndarray,
-    k_tile: int,
-    n_valid: jnp.ndarray,
-    tile_n: int,
-    interpret: bool,
-) -> jnp.ndarray:
-    """Per-tile top-``k_tile`` packed keys, (out_rows, num_tiles*k_pad) with
-    k_pad = k_tile rounded up to 128; padding lanes carry INT32_MIN.
-    Callers recover global row indices via ``pos // k_pad * tile_n + local``
-    where ``local`` unpacks from the key's low bits."""
-    q_count, d = q_int8.shape
-    n = matrix_int8_t.shape[1]
-    tile = min(tile_n, n)
-    assert n % tile == 0, "matrix must be pre-padded to the tile size"
-    assert tile <= _IDX_MASK + 1, "tile too wide for packed lane bits"
-    num_tiles = n // tile
-
-    q_pad = (-q_count) % 32
-    if q_pad:
-        q_int8 = jnp.pad(q_int8, ((0, q_pad), (0, 0)))
-    qp = q_int8.shape[0]
-    out_rows = min(qp, max(8, -(-q_count // 8) * 8))
-
-    k_pad = -(-k_tile // 128) * 128
-    kernel = functools.partial(
-        _int8_packed_kernel, k=k_tile, k_pad=k_pad, tile_n=tile, out_rows=out_rows
-    )
-    keys = pl.pallas_call(
-        kernel,
-        grid=(num_tiles,),
-        in_specs=[
-            pl.BlockSpec((qp, d), lambda i: (0, 0), memory_space=pltpu.VMEM),
-            pl.BlockSpec((d, tile), lambda i: (0, i), memory_space=pltpu.VMEM),
-            pl.BlockSpec((1, tile), lambda i: (0, i), memory_space=pltpu.VMEM),
-            pl.BlockSpec(memory_space=pltpu.SMEM),
-        ],
-        out_specs=[
-            pl.BlockSpec((out_rows, k_pad), lambda i: (0, i), memory_space=pltpu.VMEM),
-        ],
-        out_shape=[
-            jax.ShapeDtypeStruct((out_rows, num_tiles * k_pad), jnp.int32),
-        ],
-        interpret=interpret,
-        cost_estimate=pl.CostEstimate(
-            flops=2 * qp * n * d,
-            bytes_accessed=n * d + qp * d + n * 4,
-            transcendentals=0,
-        ),
-    )(q_int8, matrix_int8_t, scales.reshape(1, -1),
-      jnp.reshape(n_valid.astype(jnp.int32), (1, 1)))[0]
-    return keys
-
-
-def _int8_candidates(
-    q_int8: jnp.ndarray,
-    matrix_int8_t: jnp.ndarray,
-    scales: jnp.ndarray,
-    k_tile: int,
-    n_valid: jnp.ndarray,
-    tile_n: int,
-    interpret: bool,
-) -> Tuple[jnp.ndarray, jnp.ndarray]:
-    """Raw per-tile candidate buffers (out_rows, num_tiles*k_pad): each tile's
-    top-``k_tile`` scaled scores + global indices, padding lanes carry
-    (-inf, INT32_MAX) sentinels. Callers merge (top-k or deeper shortlist)."""
-    q_count, d = q_int8.shape
-    n = matrix_int8_t.shape[1]
-    tile = min(tile_n, n)
-    assert n % tile == 0, "matrix must be pre-padded to the tile size"
-    num_tiles = n // tile
-
-    # int8 sublane tiling is 32; pad queries accordingly. Outputs only carry
-    # the fp32-sublane-aligned real rows.
-    q_pad = (-q_count) % 32
-    if q_pad:
-        q_int8 = jnp.pad(q_int8, ((0, q_pad), (0, 0)))
-    qp = q_int8.shape[0]
-    out_rows = min(qp, max(8, -(-q_count // 8) * 8))
-
-    meta = jnp.reshape(n_valid.astype(jnp.int32), (1, 1))
-    scales2d = scales.reshape(1, -1)
-
-    k_pad = -(-k_tile // 128) * 128
-    kernel = functools.partial(
-        _int8_topk_kernel, k=k_tile, k_pad=k_pad, tile_n=tile, out_rows=out_rows
-    )
-    scores, idx = pl.pallas_call(
-        kernel,
-        grid=(num_tiles,),
-        in_specs=[
-            pl.BlockSpec((qp, d), lambda i: (0, 0), memory_space=pltpu.VMEM),
-            pl.BlockSpec((d, tile), lambda i: (0, i), memory_space=pltpu.VMEM),
-            pl.BlockSpec((1, tile), lambda i: (0, i), memory_space=pltpu.VMEM),
-            pl.BlockSpec(memory_space=pltpu.SMEM),
-        ],
-        out_specs=[
-            pl.BlockSpec((out_rows, k_pad), lambda i: (0, i), memory_space=pltpu.VMEM),
-            pl.BlockSpec((out_rows, k_pad), lambda i: (0, i), memory_space=pltpu.VMEM),
-        ],
-        out_shape=[
-            jax.ShapeDtypeStruct((out_rows, num_tiles * k_pad), jnp.float32),
-            jax.ShapeDtypeStruct((out_rows, num_tiles * k_pad), jnp.int32),
-        ],
-        interpret=interpret,
-        cost_estimate=pl.CostEstimate(
-            flops=2 * qp * n * d,
-            bytes_accessed=n * d + qp * d + n * 4,
-            transcendentals=0,
-        ),
-    )(q_int8, matrix_int8_t, scales2d, meta)
-    return scores, idx
-
-
-def _int8_scores_kernel(
-    q_ref, m_ref, scales_ref, meta_ref, out_ref, *, tile_n: int, out_rows: int
-):
-    """Matmul-only variant: emits the raw scaled f32 scores for the tile —
-    no in-kernel extraction at all. The shortlist is built OUTSIDE the
-    kernel from the materialized (out_rows, N) score matrix (4 MB/query at
-    1M rows — noise next to the 1.15 GB matrix read). Deleting the
-    k_tile extraction rounds is worth ~1.5 ms at 1M rows (k_tile=80 costs
-    80 VPU max-and-mask passes per tile; scripts/probe_fused_overhead.py)."""
-    base = pl.program_id(0) * tile_n
-    acc = jax.lax.dot_general(
-        q_ref[:], m_ref[:],
-        dimension_numbers=(((1,), (0,)), ((), ())),
-        preferred_element_type=jnp.int32,
-    )
-    scores = acc[:out_rows].astype(jnp.float32) * scales_ref[0, :][None, :]
-    col = jax.lax.broadcasted_iota(jnp.int32, scores.shape, 1) + base
-    out_ref[:] = jnp.where(col < meta_ref[0, 0], scores, _NEG_INF)
-
-
-def int8_scores_pallas(
-    q_int8: jnp.ndarray,
-    matrix_int8_t: jnp.ndarray,
+    matrix_int8: jnp.ndarray,
     scales: jnp.ndarray,
     n_valid: jnp.ndarray,
-    tile_n: int = INT8_TILE_N,
+    block_n: int = _BLOCK_N,
     interpret: bool = False,
 ) -> jnp.ndarray:
-    """(Q, D) int8 queries → (Q, N) f32 scaled scores (padding cols -inf)."""
+    """(Q, D) int8 queries × (N, D) int8 rows → (Q, N) f32 scaled scores,
+    -inf past ``n_valid``; the Pallas kernel compiled through Triton
+    (``interpret`` runs it on the CPU, for tests)."""
     q_count, d = q_int8.shape
-    n = matrix_int8_t.shape[1]
-    tile = min(tile_n, n)
-    assert n % tile == 0, "matrix must be pre-padded to the tile size"
-    num_tiles = n // tile
-    q_pad = (-q_count) % 32
-    if q_pad:
-        q_int8 = jnp.pad(q_int8, ((0, q_pad), (0, 0)))
-    qp = q_int8.shape[0]
-    out_rows = min(qp, max(8, -(-q_count // 8) * 8))
+    n = matrix_int8.shape[0]
+    if not triton_scan_fits(n, d, block_n):
+        raise ValueError(f"Triton int8 scan needs N % {block_n} == 0 and D % 16 == 0, got {(n, d)}")
+    block_k = _triton_block_k(d)
+    block_q = min(_MAX_BLOCK_Q, max(16, 1 << (q_count - 1).bit_length()))
+    qp = -(-q_count // block_q) * block_q
+    if qp > q_count:
+        q_int8 = jnp.pad(q_int8, ((0, qp - q_count), (0, 0)))
     kernel = functools.partial(
-        _int8_scores_kernel, tile_n=tile, out_rows=out_rows
+        _int8_scores_kernel, block_q=block_q, block_n=block_n, block_k=block_k
     )
-    scores = pl.pallas_call(
+    out = pl.pallas_call(
         kernel,
-        grid=(num_tiles,),
-        in_specs=[
-            pl.BlockSpec((qp, d), lambda i: (0, 0), memory_space=pltpu.VMEM),
-            pl.BlockSpec((d, tile), lambda i: (0, i), memory_space=pltpu.VMEM),
-            pl.BlockSpec((1, tile), lambda i: (0, i), memory_space=pltpu.VMEM),
-            pl.BlockSpec(memory_space=pltpu.SMEM),
-        ],
-        out_specs=[
-            pl.BlockSpec((out_rows, tile), lambda i: (0, i), memory_space=pltpu.VMEM),
-        ],
-        out_shape=[jax.ShapeDtypeStruct((out_rows, n), jnp.float32)],
-        interpret=interpret,
-        cost_estimate=pl.CostEstimate(
-            flops=2 * qp * n * d,
-            bytes_accessed=n * d + qp * d + n * 4 + out_rows * n * 4,
-            transcendentals=0,
+        grid=(qp // block_q, n // block_n),
+        out_shape=jax.ShapeDtypeStruct((qp, n), jnp.float32),
+        compiler_params=plgpu.CompilerParams(
+            num_warps=_NUM_WARPS, num_stages=_NUM_STAGES
         ),
-    )(q_int8, matrix_int8_t, scales.reshape(1, -1),
-      jnp.reshape(n_valid.astype(jnp.int32), (1, 1)))[0]
-    return scores[:q_count]
+        interpret=interpret,
+        name="int8_scores",
+    )(q_int8, matrix_int8, scales, jnp.reshape(jnp.asarray(n_valid, jnp.int32), (1,)))
+    return out[:q_count]
 
 
-def _int8_scores_xla(q_int8, matrix_int8_t, scales, n_valid):
-    """XLA analog of :func:`int8_scores_pallas` (CPU tests / small indexes)."""
+def _int8_scores_xla(q_int8, matrix_int8, scales, n_valid):
+    """Plain XLA reference of :func:`int8_scores_triton` (the CPU route)."""
     acc = jax.lax.dot_general(
-        q_int8, matrix_int8_t,
-        dimension_numbers=(((1,), (0,)), ((), ())),
+        q_int8, matrix_int8,
+        dimension_numbers=(((1,), (1,)), ((), ())),
         preferred_element_type=jnp.int32,
     )
     scores = acc.astype(jnp.float32) * scales[None, :]
-    col = jax.lax.broadcasted_iota(jnp.int32, (1, matrix_int8_t.shape[1]), 1)
+    col = jax.lax.broadcasted_iota(jnp.int32, (1, matrix_int8.shape[0]), 1)
     return jnp.where(col < n_valid, scores, _NEG_INF)
+
+
+def int8_scores(q_int8, matrix_int8, scales, n_valid):
+    """The int8 scan: (Q, N) f32 scaled scores, -inf past ``n_valid``.
+    Routed by ``platform.int8_scan_route`` alone (decided while tracing):
+    the Triton kernel refuses a matrix not padded to ``INT8_TILE_N``."""
+    if platform.int8_scan_route() == "triton":
+        return int8_scores_triton(q_int8, matrix_int8, scales, n_valid)
+    return _int8_scores_xla(q_int8, matrix_int8, scales, n_valid)
 
 
 def _verified_shortlist(
@@ -420,22 +238,18 @@ def _verified_shortlist(
 ) -> Tuple[jnp.ndarray, jnp.ndarray, jnp.ndarray]:
     """Approx top-``m`` over materialized scores + a PROVEN-content flag.
 
-    ``lax.approx_max_k`` (TPU PartialReduce) is near-free at its default
-    bin sizing but may silently drop mid-rank candidates. A count verify
-    proves (or disproves) shortlist sufficiency without assuming anything
-    about the reduction: with t = the J-th shortlist score
-    (J = ``verify_depth``), per query
+    ``lax.approx_max_k`` may silently drop mid-rank candidates on backends
+    where it is approximate. A count verify proves (or disproves) shortlist
+    sufficiency without assuming anything about the reduction: with t = the
+    J-th shortlist score (J = ``verify_depth``), per query
 
         ok ⟺ |{scores > t}| == |{shortlist > t}|      (no miss above t)
              ∧ |{scores == t}| == |{shortlist == t}|  (no tie straddles t)
 
     — four cheap reductions over the already-materialized score matrix.
-    ``ok`` (scalar, all-queries) is RETURNED for a host-side decision, NOT
-    branched on in-program: ``lax.cond`` measurably executes both branches
-    on this backend (an in-program ``lax.top_k(scores, m)`` fallback costs
-    ~25/100 ms at q=16/64 — scripts/probe_shortlist_matrix.py), so the
-    caller re-runs the extract-kernel program on the rare !ok instead
-    (~9% of random 1M-row single queries at J=64).
+    ``ok`` (scalar, all-queries) is RETURNED for a host-side decision, not
+    branched on in-program, so the exact fallback
+    (:func:`topk_exact_from_scores`) runs only when a proof fails.
 
     Guarantee when ok: the candidate set contains the TRUE int8-score
     top-J exactly — ties included — plus up to m-J opportunistic extras.
@@ -453,98 +267,64 @@ def _verified_shortlist(
 
 
 # Shortlist construction for the fused path ("auto" resolves in
-# resolve_shortlist_method): "verified" = scores kernel + approx_max_k +
-# count-verify, host falls back to "extract" on the rare miss (2.6 ms at
-# 1M vs 4.0 — the single-query default on TPU); "approx" = same without
-# the verify/fallback (opt-in speed mode: 2.7 ms for a 16-query batch =
-# 2.7x the extract qps, top-k content may deviate ~1%/query from the
-# exact paths on near-ties); "exact" = scores + lax.top_k (exact
-# top-shortlist by construction, single-query diagnostics — batched XLA
-# top_k is catastrophically slow); "extract" = the in-kernel packed-key
-# extraction (batch default; also serves when the (Q, N) score matrix
-# would exceed the transient-HBM cap below).
-import os as _os
-
-_SCORES_HBM_CAP_MB = float(_os.environ.get("TPUCLIP_SCORES_HBM_MB", "1024"))
-
-# approx_max_k recall target for the verified shortlist. Swept on v5e at
-# 1M x 1152 (scripts/probe_verified_config.py): higher targets DO push the
-# proof-pass rate to ~1.0 (0.999 → 188-192/192) but the PartialReduce keeps
-# so many more per-bin candidates that the fused program slows past the
-# fallback it avoids — device p50 3.5/5.7/10.9 ms at m=128/256/512 with
-# r=0.999 vs 1.56 ms shipped; deeper m at r=0.95 buys NOTHING (identical
-# misses at m=512/768 — PROBE_SET=deep). The pass rate also varies
-# run-to-run on identical deterministic inputs (0.906 vs 0.786 across
-# processes), so r3.7 attacks the fallback cost instead: a proof miss now
-# pays only an exact top_k over the RESIDENT score matrix
-# (topk_exact_from_scores), not a second scan. Keep 0.95; the env knob
-# exists for distribution-specific tuning.
-_SHORTLIST_RECALL = float(
-    _os.environ.get("TPUCLIP_SHORTLIST_RECALL", "0.95")
-)
+# resolve_shortlist_method): "exact" = scores + lax.top_k (the default);
+# "approx" = scores + lax.approx_max_k; "verified" = approx + a count proof
+# with a host-side fallback over the resident score matrix. On the GPU
+# approx_max_k lowers to the same full radix sort as top_k (PERF.md), so
+# "approx" and "verified" only differ from "exact" on backends whose
+# approx_max_k really is approximate.
+_SHORTLIST_RECALL = float(os.environ.get("TPUCLIP_SHORTLIST_RECALL", "0.95"))
+_SHORTLIST_METHODS = ("exact", "approx", "verified")
 
 
-def resolve_shortlist_method(q_count: int, on_tpu: bool) -> str:
-    """Default policy, env-overridable via TPUCLIP_SHORTLIST."""
-    env = _os.environ.get("TPUCLIP_SHORTLIST", "auto")
-    if env != "auto":
-        return env
-    if not on_tpu:
-        return "extract"
-    return "verified" if q_count == 1 else "extract"
-
-
-@functools.partial(jax.jit, static_argnames=("k", "tile_n", "interpret"))
-def topk_int8_pallas(
-    q_int8: jnp.ndarray,       # (Q, D) int8
-    matrix_int8_t: jnp.ndarray,  # (D, N) int8, pre-padded to tile multiple
-    scales: jnp.ndarray,       # (N,) float32 (padded width)
-    q_scale: jnp.ndarray,      # () float32
-    k: int,
-    n_valid: Optional[jnp.ndarray] = None,
-    tile_n: int = INT8_TILE_N,
-    interpret: bool = False,
-) -> Tuple[jnp.ndarray, jnp.ndarray]:
-    q_count = q_int8.shape[0]
-    n = matrix_int8_t.shape[1]
-    if n_valid is None:
-        n_valid = jnp.asarray(n, jnp.int32)
-    k_eff = min(k, n) if n > 0 else 0
-    if k_eff == 0:
-        return (
-            jnp.zeros((q_count, 0), jnp.float32),
-            jnp.zeros((q_count, 0), jnp.int32),
+def resolve_shortlist_method() -> str:
+    """Default policy ("exact"), overridable via TPUCLIP_SHORTLIST."""
+    env = os.environ.get("TPUCLIP_SHORTLIST", "auto")
+    if env == "auto":
+        return "exact"
+    if env not in _SHORTLIST_METHODS:
+        raise ValueError(
+            f"TPUCLIP_SHORTLIST={env!r}; expected auto or one of {_SHORTLIST_METHODS}"
         )
-    scores, idx = _int8_candidates(
-        q_int8, matrix_int8_t, scales, k_eff, n_valid, tile_n, interpret
-    )
-    merged_s, merged_i = _final_merge(scores, idx, k_eff)
-    return merged_s[:q_count] * q_scale, merged_i[:q_count]
+    return env
+
+
+# Bytes of device memory the shortlist selection takes per (query, row)
+# score: the f32 score, and for lax.top_k on the GPU a cub radix sort over
+# (score, index) pairs — the sorted copies plus the sort's scratch, 8 bytes
+# each, and the int32 index iota (compiled HLO on an H100, PERF.md).
+_SELECT_BYTES_PER_SCORE = 24
+
+
+def score_rows_per_pass(n: int) -> int:
+    """Capacity gate for the (Q, N) score matrix and its selection: how
+    many query rows one pass may score so the transient fits the device's
+    free memory (``platform.fits``'s margin). Unbounded where the device
+    reports no memory statistics. Evaluated while tracing."""
+    free = platform.free_bytes()
+    if free is None:
+        return 1 << 30
+    return max(1, free // max(1, n * _SELECT_BYTES_PER_SCORE))
 
 
 @functools.partial(jax.jit, static_argnames=("k",))
-def topk_int8_xla(
-    q_int8, matrix_int8_t, scales, q_scale, k, n_valid=None, mask=None
+def topk_int8_scan(
+    q_int8, matrix_int8, scales, q_scale, k, n_valid=None, mask=None
 ):
-    """XLA path (CPU tests / masked searches)."""
-    n = matrix_int8_t.shape[1]
+    """int8 scan + ``lax.top_k`` (masked searches and the non-fused paths);
+    (score desc, idx asc) order, scores rescaled by ``q_scale``."""
+    n = matrix_int8.shape[0]
     k_eff = min(k, n) if n > 0 else 0
     if k_eff == 0:
         return (
             jnp.zeros((q_int8.shape[0], 0), jnp.float32),
             jnp.zeros((q_int8.shape[0], 0), jnp.int32),
         )
-    acc = jax.lax.dot_general(
-        q_int8, matrix_int8_t,
-        dimension_numbers=(((1,), (0,)), ((), ())),
-        preferred_element_type=jnp.int32,
-    )
-    scores = acc.astype(jnp.float32) * scales[None, :]
+    if n_valid is None:
+        n_valid = jnp.asarray(n, jnp.int32)
+    scores = int8_scores(q_int8, matrix_int8, scales, n_valid)
     if mask is not None:
         scores = scores + mask[None, :]
-    if n_valid is not None:
-        col = jax.lax.broadcasted_iota(jnp.int32, (1, n), 1)
-        scores = jnp.where(col < n_valid, scores, _NEG_INF)
     top_s, top_i = jax.lax.top_k(scores, k_eff)
     order = jnp.lexsort((top_i, -top_s), axis=-1)
     return (
@@ -553,65 +333,66 @@ def topk_int8_xla(
     )
 
 
+def _shortlist(scores, m, k_eff, method, shortlist_recall):
+    """(top scores, candidate rows, proof flag or None) for one score block."""
+    if method == "exact":
+        top_s, cand = jax.lax.top_k(scores, m)
+        return top_s, cand.astype(jnp.int32), None
+    if method == "approx":
+        top_s, cand = jax.lax.approx_max_k(scores, m)
+        return top_s, cand.astype(jnp.int32), None
+    return _verified_shortlist(
+        scores, m, verify_depth=min(m, max(64, 4 * k_eff)),
+        recall_target=(
+            _SHORTLIST_RECALL if shortlist_recall is None else shortlist_recall
+        ),
+    )
+
+
 @functools.partial(
     jax.jit,
     static_argnames=(
-        "k", "shortlist", "tile_n", "use_pallas", "use_packed", "interpret",
-        "shortlist_method", "shortlist_recall", "keep_scores",
+        "k", "shortlist", "shortlist_method", "shortlist_recall", "keep_scores",
     ),
 )
 def topk_int8_rerank_fused(
     q_f32: jnp.ndarray,          # (Q, D) float32 queries (unquantized)
-    matrix_int8_t: jnp.ndarray,  # (D, N) int8, pre-padded to tile multiple
+    matrix_int8: jnp.ndarray,    # (N, D) int8, pre-padded to a tile multiple
     scales: jnp.ndarray,         # (N,) float32 per-vector scales
     rows_full: jnp.ndarray,      # (N_rows, D) bf16/f32 row-major full-precision copy
     k: int,
     shortlist: int = 512,
     n_valid: Optional[jnp.ndarray] = None,
-    tile_n: int = INT8_TILE_N,
-    use_pallas: bool = True,
-    use_packed: bool = True,
-    interpret: bool = False,
     shortlist_method: Optional[str] = None,
     shortlist_recall: Optional[float] = None,
     keep_scores: bool = False,
 ) -> Tuple[jnp.ndarray, jnp.ndarray]:
-    """ONE device program: int8 scan -> top-``shortlist`` merge -> gather the
-    shortlisted rows from the resident full-precision matrix -> exact rescore
-    -> final (score desc, idx asc) top-k.
+    """ONE device program: int8 scan -> top-``shortlist`` selection -> gather
+    the shortlisted rows from the resident full-precision matrix -> exact
+    rescore -> final (score desc, idx asc) top-k.
 
-    This is the production int8 serving path: the 1.15 GB int8 matrix is the
-    only full scan (vs 2.3 GB bf16 — ~2x less HBM read), and exactness comes
-    from rescoring the tiny shortlist against ``rows_full`` on device (a few
-    MB of gathers), replacing round-1's host-memmap re-rank
-    (index/search.py:_exact_rerank) whose fetch+numpy ran per query on the
-    host. Scores returned are bit-identical to the full bf16 scan's for any
-    candidate both paths return.
+    The int8 matrix is the only full scan (half the bytes of the bf16
+    matrix), and exactness comes from rescoring the shortlist against
+    ``rows_full`` on device (a few MB of gathers) instead of a host-memmap
+    re-rank (index/search.py:_exact_rerank). Scores returned are
+    bit-identical to the full bf16 scan's for any candidate both paths
+    return.
 
-    Shortlist construction (``shortlist_method`` / TPUCLIP_SHORTLIST):
+    ``shortlist_method`` (None = "exact", see resolve_shortlist_method):
+    "exact" selects with ``lax.top_k``; "approx" with ``lax.approx_max_k``;
+    "verified" adds :func:`_verified_shortlist`'s proof flag as a third
+    output for the caller's host-side fallback, and with ``keep_scores`` the
+    (Q, N) score matrix as a fourth. The score matrix is scored
+    :func:`score_rows_per_pass` query rows at a time.
 
-    - ``"approx"`` (default): the scan kernel emits raw f32 scores
-      (:func:`int8_scores_pallas`) and ``lax.approx_max_k`` builds the
-      shortlist, made contract-safe by :func:`_verified_shortlist`'s count
-      verify + exact-top_k fallback. Guaranteed to contain the true
-      int8-score top-J (J = max(64, 4k)) with ties resolved per the
-      (score desc, idx asc) contract, plus opportunistic candidates to
-      ``shortlist`` depth. Measured 2.6 ms at 1M x 1152 on v5e.
-    - ``"exact"``: scores + ``lax.top_k`` — the full ``shortlist`` depth
-      is exact by construction (3.2 ms).
-    - ``"extract"``: the in-kernel per-tile packed-key extraction
-      (4.0 ms; no (Q, N) score materialization — serves automatically
-      when the score matrix would exceed TPUCLIP_SCORES_HBM_MB).
-
-    Recall contract (all methods): a true top-k item is returned iff it
-    survives the int8 shortlist. With unit-norm vectors int8 quantization
-    perturbs cosine scores by ~1e-3, so at the guaranteed depths the miss
-    probability is negligible (property-tested in tests/test_topk_int8.py);
-    the extract path additionally requires the item to survive its tile's
-    top-``k_tile`` (>= 4k per tile).
+    Recall contract: a true top-k item is returned iff it survives the int8
+    shortlist. With unit-norm vectors int8 quantization perturbs cosine
+    scores by ~1e-3, so at depth max(512, 4k) the miss probability is
+    negligible (property-tested in tests/test_topk_int8.py).
     """
     q_count, d = q_f32.shape
-    n = matrix_int8_t.shape[1]
+    n = matrix_int8.shape[0]
+    method = shortlist_method or "exact"
     if n_valid is None:
         n_valid = jnp.asarray(n, jnp.int32)
     k_eff = min(k, n) if n > 0 else 0
@@ -620,7 +401,7 @@ def topk_int8_rerank_fused(
             jnp.zeros((q_count, 0), jnp.float32),
             jnp.zeros((q_count, 0), jnp.int32),
         )
-        if shortlist_method == "verified":
+        if method == "verified":
             empty += (jnp.asarray(True),)
             if keep_scores:
                 empty += (jnp.zeros((q_count, 0), jnp.float32),)
@@ -629,126 +410,30 @@ def topk_int8_rerank_fused(
     # Shortlist selection skips the (rank-invariant) query scale; exact
     # scores come from the rescore anyway.
     qi, _ = quantize_queries_device(q_f32)
-
-    # Depth safety: the shortlist must cover k, and the per-tile Pallas
-    # extraction caps at 128 candidates/tile — beyond that the XLA candidate
-    # path keeps the exact per-k depth instead of silently truncating.
     m = min(max(shortlist, 4 * k_eff), n)
-    use_pallas = use_pallas and k_eff <= 128
-    # VMEM scaling with the query batch: the kernel's scoped stack holds the
-    # (D, tile) int8 block twice (double buffer) plus (qp, tile) int32/f32
-    # accumulators — at q=64 the 6144 tile overflows the 16 MB limit
-    # (measured: 17.38 M requested). Narrow the tile as qp grows; 3072 and
-    # 2048 divide any INT8_TILE_N-padded width, so the same matrix serves
-    # every batch size.
-    qp_est = q_count + ((-q_count) % 32)
-    if use_pallas and tile_n == INT8_TILE_N and qp_est > 32:
-        narrower = 3072 if qp_est <= 64 else 2048
-        if n % narrower == 0:
-            tile_n = narrower
-
-    # Scores-materializing shortlist (r3 redesign, scripts/probe_*): the
-    # scan kernel emits raw f32 scores and the shortlist is built outside.
-    # "verified" additionally returns the proof flag for the caller's
-    # host-side fallback decision (NO in-program lax.cond — see
-    # _verified_shortlist). Gated by a transient-HBM cap on the
-    # (out_rows, N) f32 score matrix; past it the extract path serves
-    # (still proof-clean, so a gated-out "verified" reports ok=True).
-    method = shortlist_method or "extract"
-    out_rows_est = min(qp_est, max(8, -(-q_count // 8) * 8))
-    scores_fit = out_rows_est * n * 4 <= _SCORES_HBM_CAP_MB * 1e6
-    shortlist_ok = None
-    if method in ("approx", "exact", "verified") and scores_fit:
-        pallas_ok = use_pallas and n >= tile_n and n % tile_n == 0
-        if pallas_ok:
-            scores_all = int8_scores_pallas(
-                qi, matrix_int8_t, scales, n_valid, tile_n, interpret
-            )[:q_count]
-        else:
-            scores_all = _int8_scores_xla(qi, matrix_int8_t, scales, n_valid)[
-                :q_count
-            ]
-        if method == "exact":
-            top_s, cand = jax.lax.top_k(scores_all, m)
-            cand = cand.astype(jnp.int32)
-        elif method == "approx":
-            top_s, cand = jax.lax.approx_max_k(scores_all, m)
-            cand = cand.astype(jnp.int32)
-        else:
-            top_s, cand, shortlist_ok = _verified_shortlist(
-                scores_all, m, verify_depth=min(m, max(64, 4 * k_eff)),
-                recall_target=(
-                    _SHORTLIST_RECALL
-                    if shortlist_recall is None
-                    else shortlist_recall
-                ),
-            )
-        cand_invalid = jnp.isneginf(top_s)
-    elif use_pallas and n >= tile_n and n % tile_n == 0:
-        num_tiles = n // min(tile_n, n)
-        # Per-tile depth: any single tile must be able to supply 4x the final
-        # k (matching the host-rerank path's shortlist margin — at large N
-        # 2*ceil(m/num_tiles) collapses to ~k_eff, and >k near-ties
-        # concentrated in one tile, e.g. near-duplicate images, could then
-        # evict a true top-k row on int8 noise before the global merge sees
-        # it), plus proportional shortlist headroom — NOT shortlist-deep
-        # (the k-round extraction runs per tile; keep it cheap).
-        k_tile = min(128, max(4 * k_eff, 2 * (-(-m // num_tiles))))
-        if use_packed and min(tile_n, n) <= _IDX_MASK + 1:
-            # Packed-key extraction (default): ~10-14% faster scan, same
-            # shortlist (probe: overlap 1.0000@512); key truncation only
-            # perturbs shortlist tie selection, never returned scores.
-            keys = _int8_candidates_packed(
-                qi, matrix_int8_t, scales, k_tile, n_valid, tile_n, interpret
-            )[:q_count]
-            k_pad = -(-k_tile // 128) * 128
-            m = min(m, keys.shape[1])
-            top_keys, pos = jax.lax.top_k(keys, m)
-            u = (
-                jax.lax.bitcast_convert_type(top_keys, jnp.uint32)
-                ^ jnp.uint32(0x80000000)
-            )
-            local = (jnp.uint32(_IDX_MASK) - (u & jnp.uint32(_IDX_MASK))).astype(
-                jnp.int32
-            )
-            cand = (pos // k_pad) * min(tile_n, n) + local
-            cand_invalid = top_keys <= jnp.int32(_NEGINF_KEY_MAX)
-        else:
-            scores_q, rows_q = _int8_candidates(
-                qi, matrix_int8_t, scales, k_tile, n_valid, tile_n, interpret
-            )
-            scores_q, rows_q = scores_q[:q_count], rows_q[:q_count]
-            m = min(m, rows_q.shape[1])
-            top_s, pos = jax.lax.top_k(scores_q, m)
-            cand = jnp.take_along_axis(rows_q, pos, axis=1)
-            cand_invalid = jnp.isneginf(top_s)
-    else:
-        scores_q, rows_q = topk_int8_xla(
-            qi, matrix_int8_t, scales, jnp.asarray(1.0, jnp.float32),
-            m, n_valid=n_valid,
-        )
-        top_s, pos = jax.lax.top_k(scores_q, m)
-        cand = jnp.take_along_axis(rows_q, pos, axis=1)  # (Q, M) row indices
-        cand_invalid = jnp.isneginf(top_s)
-
-    out = _rescore_select(cand, cand_invalid, q_f32, rows_full, k_eff)
-    if shortlist_method == "verified":
-        # Three-tuple return for the host-side fallback decision; constant
-        # True when a gate routed to a proof-clean path (extract/exact).
-        ok = shortlist_ok if shortlist_ok is not None else jnp.asarray(True)
+    per_pass = score_rows_per_pass(n)
+    tops, cands, oks, kept = [], [], [], []
+    for lo in range(0, q_count, per_pass):
+        scores = int8_scores(qi[lo:lo + per_pass], matrix_int8, scales, n_valid)
+        top_s, cand, ok = _shortlist(scores, m, k_eff, method, shortlist_recall)
+        tops.append(top_s)
+        cands.append(cand)
+        if ok is not None:
+            oks.append(ok)
         if keep_scores:
-            # Resident-scores fourth output: the already-materialized
-            # (Q, N) int8 score matrix stays on device so a proof failure
-            # needs only an exact top_k over it + rescore
-            # (topk_exact_from_scores) — NOT a second full scan. Empty
-            # (Q, 0) when a gate routed away from the scores path (then
-            # ok is constant True and the output is never consumed).
-            scores_res = (
-                scores_all
-                if shortlist_ok is not None
-                else jnp.zeros((q_count, 0), jnp.float32)
-            )
-            return out + (ok, scores_res)
+            kept.append(scores)
+    top_s = jnp.concatenate(tops) if len(tops) > 1 else tops[0]
+    cand = jnp.concatenate(cands) if len(cands) > 1 else cands[0]
+
+    out = _rescore_select(cand, jnp.isneginf(top_s), q_f32, rows_full, k_eff)
+    if method == "verified":
+        # Three-tuple return for the host-side fallback decision.
+        ok = jnp.all(jnp.stack(oks))
+        if keep_scores:
+            # The already-materialized (Q, N) int8 score matrix stays on
+            # device so a proof failure needs only an exact top_k over it +
+            # rescore (topk_exact_from_scores) — NOT a second full scan.
+            return out + (ok, jnp.concatenate(kept) if len(kept) > 1 else kept[0])
         return out + (ok,)
     return out
 
@@ -762,22 +447,28 @@ def _rescore_select(cand, cand_invalid, q_f32, rows_full, k_eff):
     rounded to the storage dtype first — and that rounding must be done
     with integer bit ops (round_f32_to_bf16_bits): under jit, XLA's
     excess-precision rule elides an `astype(bf16)` that feeds the dot's
-    internal f32 upcast and substitutes the UNROUNDED query (measured
-    3e-3 score divergence from the bf16 scan on v5e — enough to drop true
-    top-k items near the cutoff; verified by bit-exact match against a
-    host emulation with the unrounded query). With the query genuinely
-    rounded, products of bf16-rounded inputs are exact in f32, so scores
-    match the scan's up to f32 summation order (~1e-6).
+    internal f32 upcast and substitutes the UNROUNDED query (a ~3e-3 score
+    divergence from the bf16 scan, enough to drop true top-k items near the
+    cutoff). With the query genuinely rounded, products of bf16-rounded
+    inputs are exact in f32, so scores match the scan's up to f32 summation
+    order (~1e-6).
+
+    Precision: bf16-rounded operands have 8 significant bits, which TF32's
+    11 hold exactly, so the default-precision dot (TF32 on the GPU) is exact
+    for bf16 rows. f32 rows are scored at HIGHEST precision.
     """
     n_rows = rows_full.shape[0]
     safe = jnp.clip(cand, 0, n_rows - 1)
     if rows_full.dtype == jnp.bfloat16:
         qr = round_f32_to_bf16_bits(q_f32.astype(jnp.float32))
+        precision = None
     else:
         qr = q_f32.astype(jnp.float32)
+        precision = jax.lax.Precision.HIGHEST
     gathered = rows_full[safe].astype(jnp.float32)  # (Q, M, D)
     exact = jnp.einsum(
-        "qmd,qd->qm", gathered, qr, preferred_element_type=jnp.float32
+        "qmd,qd->qm", gathered, qr, preferred_element_type=jnp.float32,
+        precision=precision,
     )
     invalid = (cand < 0) | (cand >= n_rows) | cand_invalid
     exact = jnp.where(invalid, _NEG_INF, exact)
@@ -802,14 +493,13 @@ def topk_exact_from_scores(scores, q_f32, rows_full, k, m):
     """Exact top-``k`` from an already-materialized int8 score matrix.
 
     The cheap proof-failure fallback for the verified shortlist: instead
-    of re-running the full extract scan (~3.2 ms at 1M×1152 — or, on the
-    fused text path, the whole text tower again), run ``lax.top_k`` over
-    the (Q, N) scores the verified program kept resident
-    (``keep_scores=True``), then the shared exact-rescore tail. The exact
-    top-``m`` of the int8 scores is the STRONGEST possible int8 shortlist
-    — a superset-in-quality of both the approx and extract shortlists —
-    so results carry the same contract: every true top-k item that
-    survives int8 quantization is returned, ties (score desc, idx asc).
+    of re-running the scan (or, on the fused text path, the whole text
+    tower again), run ``lax.top_k`` over the (Q, N) scores the verified
+    program kept resident (``keep_scores=True``), then the shared
+    exact-rescore tail. The exact top-``m`` of the int8 scores is the
+    STRONGEST possible int8 shortlist, so results carry the same contract:
+    every true top-k item that survives int8 quantization is returned, ties
+    (score desc, idx asc).
     """
     k_eff = min(k, scores.shape[1])
     top_s, cand = jax.lax.top_k(scores, m)
@@ -820,43 +510,30 @@ def topk_exact_from_scores(scores, q_f32, rows_full, k, m):
 
 def topk_int8_rerank_fused_auto(
     q_f32,
-    matrix_int8_t,
+    matrix_int8,
     scales,
     rows_full,
     k: int,
     shortlist: int = 512,
     n_valid=None,
-    use_pallas: bool = True,
     stats: Optional[dict] = None,
 ):
-    """Host-level fused search: verified fast path + resident-scores fallback.
-
-    Single TPU queries run the scores-kernel + verified-approx shortlist
-    program (~2.6 ms at 1M x 1152 vs 4.0 for the in-kernel extraction);
-    when the proof flag comes back False (~9-21% of random 1M-row queries
-    — run-to-run variable, the PartialReduce's drop pattern is not stable
-    across processes on identical inputs), an exact ``lax.top_k`` runs
-    over the score matrix the verified program kept RESIDENT on device
-    (topk_exact_from_scores) — no second scan, no re-quantization. The
-    fallback's exact top-m shortlist strictly dominates the extract
-    kernel's per-tile one, so results carry the same by-construction
-    guarantee. Batches and CPU keep the extract path (batched XLA
-    top_k/approx_max_k degrade catastrophically —
-    scripts/probe_shortlist_matrix.py). Policy env-overridable via
-    TPUCLIP_SHORTLIST (auto|verified|approx|exact|extract).
+    """Host-level fused search under the shortlist policy
+    (resolve_shortlist_method): the "verified" program's proof flag is
+    checked on the host, and a proof miss runs an exact ``lax.top_k`` over
+    the score matrix that program kept RESIDENT on device
+    (topk_exact_from_scores) — no second scan, no re-quantization.
+    ``stats`` counts verified queries and fallbacks (serve /stats).
     """
-    import numpy as _np
-
-    method = resolve_shortlist_method(int(q_f32.shape[0]), bool(use_pallas))
+    method = resolve_shortlist_method()
     if method == "verified":
         s, i, ok, scores_res = topk_int8_rerank_fused(
-            q_f32, matrix_int8_t, scales, rows_full, k, shortlist=shortlist,
-            n_valid=n_valid, use_pallas=use_pallas, shortlist_method="verified",
-            keep_scores=True,
+            q_f32, matrix_int8, scales, rows_full, k, shortlist=shortlist,
+            n_valid=n_valid, shortlist_method="verified", keep_scores=True,
         )
         if stats is not None:
             stats["verified_queries"] = stats.get("verified_queries", 0) + 1
-        if bool(_np.asarray(ok)):
+        if bool(np.asarray(ok)):
             return s, i
         if stats is not None:
             stats["shortlist_fallbacks"] = stats.get("shortlist_fallbacks", 0) + 1
@@ -866,8 +543,8 @@ def topk_int8_rerank_fused_auto(
         m = fallback_shortlist_depth(k, n, shortlist)
         return topk_exact_from_scores(scores_res, q_f32, rows_full, k, m)
     return topk_int8_rerank_fused(
-        q_f32, matrix_int8_t, scales, rows_full, k, shortlist=shortlist,
-        n_valid=n_valid, use_pallas=use_pallas, shortlist_method=method,
+        q_f32, matrix_int8, scales, rows_full, k, shortlist=shortlist,
+        n_valid=n_valid, shortlist_method=method,
     )
 
 
@@ -885,7 +562,7 @@ def _fused_embedding_tail(out, emb, shortlist_method, keep_scores):
 @functools.partial(
     jax.jit,
     static_argnames=(
-        "config", "k", "compute_dtype", "use_pallas", "shortlist",
+        "config", "k", "compute_dtype", "shortlist",
         "shortlist_method", "keep_scores",
     ),
 )
@@ -893,7 +570,7 @@ def text_topk_fused(
     params,
     ids: jnp.ndarray,            # (B, 64) int token ids (prompted + padded)
     attn_mask: jnp.ndarray,      # (B, 64) attention mask
-    matrix_int8_t: jnp.ndarray,  # (D, N) int8
+    matrix_int8: jnp.ndarray,    # (N, D) int8
     scales: jnp.ndarray,         # (N,) f32
     rows_full: jnp.ndarray,      # (N_rows, D) storage-dtype full copy
     config,
@@ -901,7 +578,6 @@ def text_topk_fused(
     n_valid: Optional[jnp.ndarray] = None,
     shortlist: int = 512,
     compute_dtype=jnp.float32,
-    use_pallas: bool = True,
     shortlist_method: Optional[str] = None,
     keep_scores: bool = False,
 ) -> Tuple[jnp.ndarray, jnp.ndarray]:
@@ -923,8 +599,8 @@ def text_topk_fused(
         params, ids, config, compute_dtype=compute_dtype, attention_mask=attn_mask
     )
     out = topk_int8_rerank_fused(
-        emb, matrix_int8_t, scales, rows_full, k,
-        shortlist=shortlist, n_valid=n_valid, use_pallas=use_pallas,
+        emb, matrix_int8, scales, rows_full, k,
+        shortlist=shortlist, n_valid=n_valid,
         shortlist_method=shortlist_method, keep_scores=keep_scores,
     )
     return _fused_embedding_tail(out, emb, shortlist_method, keep_scores)
@@ -933,14 +609,14 @@ def text_topk_fused(
 @functools.partial(
     jax.jit,
     static_argnames=(
-        "config", "k", "compute_dtype", "use_pallas", "shortlist",
+        "config", "k", "compute_dtype", "shortlist",
         "shortlist_method", "keep_scores",
     ),
 )
 def image_topk_fused(
     params,
     pixels: jnp.ndarray,         # (B, S, S, 3) uint8 NHWC (query resolution)
-    matrix_int8_t: jnp.ndarray,  # (D, N) int8
+    matrix_int8: jnp.ndarray,    # (N, D) int8
     scales: jnp.ndarray,         # (N,) f32
     rows_full: jnp.ndarray,      # (N_rows, D) storage-dtype full copy
     config,
@@ -948,7 +624,6 @@ def image_topk_fused(
     n_valid: Optional[jnp.ndarray] = None,
     shortlist: int = 512,
     compute_dtype=jnp.float32,
-    use_pallas: bool = True,
     shortlist_method: Optional[str] = None,
     keep_scores: bool = False,
 ) -> Tuple[jnp.ndarray, jnp.ndarray]:
@@ -967,8 +642,8 @@ def image_topk_fused(
 
     emb = get_image_features(params, pixels, config, compute_dtype=compute_dtype)
     out = topk_int8_rerank_fused(
-        emb, matrix_int8_t, scales, rows_full, k,
-        shortlist=shortlist, n_valid=n_valid, use_pallas=use_pallas,
+        emb, matrix_int8, scales, rows_full, k,
+        shortlist=shortlist, n_valid=n_valid,
         shortlist_method=shortlist_method, keep_scores=keep_scores,
     )
     return _fused_embedding_tail(out, emb, shortlist_method, keep_scores)
@@ -977,7 +652,7 @@ def image_topk_fused(
 @functools.partial(
     jax.jit,
     static_argnames=(
-        "config", "k", "compute_dtype", "use_pallas", "shortlist",
+        "config", "k", "compute_dtype", "shortlist",
         "shortlist_method", "keep_scores",
     ),
 )
@@ -986,7 +661,7 @@ def naflex_image_topk_fused(
     patches: jnp.ndarray,        # (B, L, P*P*C) uint8 patchified pixels
     pixel_mask: jnp.ndarray,     # (B, L) valid-patch mask
     spatial_shapes: jnp.ndarray,  # (B, 2) patch grids
-    matrix_int8_t: jnp.ndarray,  # (D, N) int8
+    matrix_int8: jnp.ndarray,    # (N, D) int8
     scales: jnp.ndarray,         # (N,) f32
     rows_full: jnp.ndarray,      # (N_rows, D) storage-dtype full copy
     config,
@@ -994,7 +669,6 @@ def naflex_image_topk_fused(
     n_valid: Optional[jnp.ndarray] = None,
     shortlist: int = 512,
     compute_dtype=jnp.float32,
-    use_pallas: bool = True,
     shortlist_method: Optional[str] = None,
     keep_scores: bool = False,
 ) -> Tuple[jnp.ndarray, jnp.ndarray]:
@@ -1008,8 +682,8 @@ def naflex_image_topk_fused(
         compute_dtype=compute_dtype,
     )
     out = topk_int8_rerank_fused(
-        emb, matrix_int8_t, scales, rows_full, k,
-        shortlist=shortlist, n_valid=n_valid, use_pallas=use_pallas,
+        emb, matrix_int8, scales, rows_full, k,
+        shortlist=shortlist, n_valid=n_valid,
         shortlist_method=shortlist_method, keep_scores=keep_scores,
     )
     return _fused_embedding_tail(out, emb, shortlist_method, keep_scores)
@@ -1018,7 +692,7 @@ def naflex_image_topk_fused(
 @functools.partial(
     jax.jit,
     static_argnames=(
-        "config", "k", "compute_dtype", "use_pallas", "shortlist",
+        "config", "k", "compute_dtype", "shortlist",
         "shortlist_method", "keep_scores",
     ),
 )
@@ -1027,7 +701,7 @@ def mixed_topk_fused(
     ids: jnp.ndarray,            # (Tb, 64) token ids (prompted + padded rows)
     attn_mask: jnp.ndarray,      # (Tb, 64) attention mask (pad rows all-zero)
     pixels: jnp.ndarray,         # (Ib, S, S, 3) uint8 NHWC (pad rows zero)
-    matrix_int8_t: jnp.ndarray,  # (D, N) int8
+    matrix_int8: jnp.ndarray,    # (N, D) int8
     scales: jnp.ndarray,         # (N,) f32
     rows_full: jnp.ndarray,      # (N_rows, D) storage-dtype full copy
     config,
@@ -1035,7 +709,6 @@ def mixed_topk_fused(
     n_valid: Optional[jnp.ndarray] = None,
     shortlist: int = 512,
     compute_dtype=jnp.float32,
-    use_pallas: bool = True,
     shortlist_method: Optional[str] = None,
     keep_scores: bool = False,
 ) -> Tuple[jnp.ndarray, jnp.ndarray]:
@@ -1043,12 +716,10 @@ def mixed_topk_fused(
     scan over the concatenated (texts-first) query block, exact rescore,
     top-k — one device program.
 
-    Why: the scan's cost is ~flat in the query count (it is an HBM
-    bandwidth read of the matrix), so a mixed serve window that runs the
-    text group and the image group as separate passes pays that read
-    twice. Measured on v5e (scripts/probe_mixed_batch.py, 1M x 1152,
-    2 texts + 2 images): separate passes 8.20 ms, combined 5.00 ms —
-    the second scan is pure waste. Row layout of every output: texts
+    Why: the scan's cost is ~flat in the query count (it is a
+    bandwidth-bound read of the matrix), so a mixed serve window that runs
+    the text group and the image group as separate passes pays that read
+    twice. Row layout of every output: texts
     occupy rows [0, Tb), images rows [Tb, Tb+Ib); the caller slices the
     real (unpadded) entries out of each span. Same
     ``shortlist_method="verified"`` / ``keep_scores`` extra-output
@@ -1062,8 +733,8 @@ def mixed_topk_fused(
     emb_v = get_image_features(params, pixels, config, compute_dtype=compute_dtype)
     emb = jnp.concatenate([emb_t, emb_v], axis=0)
     out = topk_int8_rerank_fused(
-        emb, matrix_int8_t, scales, rows_full, k,
-        shortlist=shortlist, n_valid=n_valid, use_pallas=use_pallas,
+        emb, matrix_int8, scales, rows_full, k,
+        shortlist=shortlist, n_valid=n_valid,
         shortlist_method=shortlist_method, keep_scores=keep_scores,
     )
     return _fused_embedding_tail(out, emb, shortlist_method, keep_scores)
@@ -1072,7 +743,7 @@ def mixed_topk_fused(
 @functools.partial(
     jax.jit,
     static_argnames=(
-        "config", "k", "compute_dtype", "use_pallas", "shortlist",
+        "config", "k", "compute_dtype", "shortlist",
         "shortlist_method", "keep_scores",
     ),
 )
@@ -1083,7 +754,7 @@ def mixed_naflex_topk_fused(
     patches: jnp.ndarray,        # (Ib, L, P*P*C) uint8 patchified pixels
     pixel_mask: jnp.ndarray,     # (Ib, L) valid-patch mask
     spatial_shapes: jnp.ndarray,  # (Ib, 2) patch grids
-    matrix_int8_t: jnp.ndarray,  # (D, N) int8
+    matrix_int8: jnp.ndarray,    # (N, D) int8
     scales: jnp.ndarray,         # (N,) f32
     rows_full: jnp.ndarray,      # (N_rows, D) storage-dtype full copy
     config,
@@ -1091,7 +762,6 @@ def mixed_naflex_topk_fused(
     n_valid: Optional[jnp.ndarray] = None,
     shortlist: int = 512,
     compute_dtype=jnp.float32,
-    use_pallas: bool = True,
     shortlist_method: Optional[str] = None,
     keep_scores: bool = False,
 ) -> Tuple[jnp.ndarray, jnp.ndarray]:
@@ -1111,23 +781,23 @@ def mixed_naflex_topk_fused(
     )
     emb = jnp.concatenate([emb_t, emb_v], axis=0)
     out = topk_int8_rerank_fused(
-        emb, matrix_int8_t, scales, rows_full, k,
-        shortlist=shortlist, n_valid=n_valid, use_pallas=use_pallas,
+        emb, matrix_int8, scales, rows_full, k,
+        shortlist=shortlist, n_valid=n_valid,
         shortlist_method=shortlist_method, keep_scores=keep_scores,
     )
     return _fused_embedding_tail(out, emb, shortlist_method, keep_scores)
 
 
 @functools.partial(jax.jit, static_argnames=("k",))
-def topk_int8_batch(q_f32, matrix_int8_t, scales, k, n_valid=None, mask=None):
+def topk_int8_batch(q_f32, matrix_int8, scales, k, n_valid=None, mask=None):
     """Batched int8 scan with ON-DEVICE per-row query quantization.
 
-    One compiled program does quantize + int8 matmul + top-k + scale fold —
+    One compiled program does quantize + int8 scan + top-k + scale fold —
     the serve micro-batcher calls this per request group, so no host numpy
-    runs per request (round-1 quantized on host per call)."""
+    runs per request."""
     qi, qs = quantize_queries_device(q_f32)
-    s, i = topk_int8_xla(
-        qi, matrix_int8_t, scales, jnp.asarray(1.0, jnp.float32), k,
+    s, i = topk_int8_scan(
+        qi, matrix_int8, scales, jnp.asarray(1.0, jnp.float32), k,
         n_valid=n_valid, mask=mask,
     )
     return s * qs, i

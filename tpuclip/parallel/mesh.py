@@ -5,11 +5,13 @@ SP/EP, no comm backend). The rebuild's scale axes are:
 
 - ``data``: DP for indexing throughput and row-sharding the embedding matrix
   for search (the index, not sequence length, is what grows — SURVEY.md §5).
-- ``model``: optional TP for the towers (SO400M fits on one v5e chip, so TP
-  is exercised for validation, not necessity).
+- ``model``: optional TP for the towers (SO400M fits on one GPU, so TP is
+  exercised for validation, not necessity).
 
-Communication is XLA collectives over ICI inside jit/shard_map; multi-host
-bootstraps via ``jax.distributed.initialize`` over DCN. No custom transport.
+The mesh is flat: the GPUs of a host are joined all to all by NVLink, so the
+mesh follows the algorithm alone. Communication is XLA collectives (NCCL)
+inside jit/shard_map; multi-host bootstraps via ``jax.distributed.initialize``.
+No custom transport.
 """
 
 from __future__ import annotations
@@ -52,13 +54,13 @@ def data_sharded(mesh: Mesh, rank: int = 1, axis: int = 0) -> NamedSharding:
 
 
 def maybe_distributed_init() -> None:
-    """Multi-host bootstrap (v5e-16 style): no-op on a single host.
+    """Multi-host bootstrap: no-op on a single host.
 
-    With TPUCLIP_MULTIHOST=1, initializes the JAX distributed runtime. On
-    TPU pods the cluster auto-detects; elsewhere (manual launch, CPU
-    multi-process tests) jax.distributed.initialize() has no detector and
-    raises, so pass the coordinator explicitly when the standard env vars
-    are set (JAX_COORDINATOR_ADDRESS / JAX_NUM_PROCESSES / JAX_PROCESS_ID)."""
+    With TPUCLIP_MULTIHOST=1, initializes the JAX distributed runtime. On a
+    manual launch (and in CPU multi-process tests)
+    jax.distributed.initialize() has no cluster detector and raises, so the
+    coordinator is passed explicitly when the standard env vars are set
+    (JAX_COORDINATOR_ADDRESS / JAX_NUM_PROCESSES / JAX_PROCESS_ID)."""
     import os
 
     if os.environ.get("TPUCLIP_MULTIHOST", "") in ("1", "true"):

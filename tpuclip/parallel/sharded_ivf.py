@@ -1,11 +1,10 @@
 """Mesh-sharded IVF approximate search.
 
-Closes the last single-device gate in the index family: the flat bf16,
-int8, int8+rerank, and packed-binary indexes were mesh-sharded in round 2
-(parallel/sharded_search.py); IVF (index/ivf.py) required one device. This
-module shards the IVF structures over the ``data`` axis by CLUSTER — the
-natural TPU decomposition, because every per-cluster array is already a
-fixed-capacity block with static shapes:
+The flat bf16, int8, int8+rerank, and packed-binary indexes are
+mesh-sharded in parallel/sharded_search.py; this module shards the IVF
+structures (index/ivf.py) over the ``data`` axis by CLUSTER — the natural
+decomposition, because every per-cluster array is already a fixed-capacity
+block with static shapes:
 
 - ``centroids`` stay REPLICATED (K x D f32 is ~9 MB at K=2048 — tiny), so
   probing needs no communication.
@@ -16,8 +15,8 @@ fixed-capacity block with static shapes:
   alongside. IVF bucket rows are scattered over the global row space, so a
   shard-local exact rescore needs shard-local full vectors; embedding them
   costs capacity_factor x the flat row copy but keeps the rescore gather
-  on-chip (the cross-device alternative — an all-to-all row fetch per
-  query — would put HBM gathers on the ICI critical path).
+  on-device (the cross-device alternative — an all-to-all row fetch per
+  query — would put the gathers on the interconnect's critical path).
 - the overflow block splits by column across devices; every query scans
   its local slice (the "no row unreachable" contract survives sharding).
 
@@ -35,9 +34,9 @@ Communication: ONE all_gather of (ndev, Q, k) exact-rescored candidates —
 identical merge contract to parallel/sharded_search.py.
 
 Reference scale note: the reference scans every vector per query on one
-host (image_database.py:1564-1574); this path keeps 100M+ rows interactive
-on a v5e-16 (int8 buckets ~72 MB/chip per 1M rows at the default capacity
-factor, probe cost independent of N).
+host (image_database.py:1564-1574); here the int8 buckets take ~1.7 KB per
+row at the default capacity factor, split over the devices, and the probe
+cost is independent of N.
 """
 
 from __future__ import annotations
@@ -187,7 +186,7 @@ def _sharded_ivf_impl(
         cscores = jnp.where(cid < k_real, cscores, _NEG_INF)
         _, probe = jax.lax.top_k(cscores, p_local)  # (Q, P)
 
-        # 2. score gathered local buckets (int8 MXU dot, exact int32 acc).
+        # 2. score gathered local buckets (int8 dot, exact int32 acc).
         def score_one(qi_row, probe_row):
             slab = bks[probe_row]                 # (P, D, C) int8
             sc = bsc[probe_row]                   # (P, C)
@@ -227,12 +226,17 @@ def _sharded_ivf_impl(
             return all_full[pos_row]                          # (m, D)
 
         gathered = jax.vmap(gather_exact_one)(probe, pos).astype(jnp.float32)
+        # Exact for bf16 rows at default precision (TF32 holds bf16
+        # values); f32 rows need HIGHEST (ops/topk_int8._rescore_select).
         if bfl.dtype == jnp.bfloat16:
             qr = round_f32_to_bf16_bits(q.astype(jnp.float32))
+            precision = None
         else:
             qr = q.astype(jnp.float32)
+            precision = jax.lax.Precision.HIGHEST
         exact = jnp.einsum(
-            "qmd,qd->qm", gathered, qr, preferred_element_type=jnp.float32
+            "qmd,qd->qm", gathered, qr, preferred_element_type=jnp.float32,
+            precision=precision,
         )
         invalid = (cand < 0) | (cand >= n_rows) | jnp.isneginf(top_s)
         exact = jnp.where(invalid, _NEG_INF, exact)

@@ -1,14 +1,17 @@
 """Mesh-sharded brute-force search.
 
-The embedding matrix is row-sharded across the ``data`` axis; each device
+The embedding rows are sharded across the ``data`` axis; each device
 computes a local fused matmul+top-k over its shard, the (ndev × k) candidate
-sets ride one small ``all_gather`` over ICI, and every device reduces them to
-the global top-k. Communication is O(ndev·Q·k), independent of N — the scan
-itself never crosses chips.
+sets ride one small ``all_gather`` (NCCL between GPUs, which are joined all to
+all), and every device reduces them to the global top-k. Communication is
+O(ndev·Q·k), independent of N — the scan itself never crosses devices.
 
 This replaces "scale" for the reference's single-host sqlite-vec scan
-(image_database.py:1567): 10M × 1152 bf16 = 23 GB fits a v5e-16 slice at
-~1.4 GB/chip.
+(image_database.py:1567): the index's rows split evenly over the devices.
+
+Layouts: the float matrix is feature-major (D, N), column-sharded; the int8
+matrix, its scales, the full-precision rescore rows and the packed binary
+words are row-major, row-sharded.
 """
 
 from __future__ import annotations
@@ -22,6 +25,11 @@ from jax.sharding import Mesh, NamedSharding, PartitionSpec as P
 
 from tpuclip.parallel.mesh import DATA_AXIS
 from tpuclip.ops.topk import topk_xla
+from tpuclip.ops.topk_int8 import (
+    quantize_queries_device,
+    round_f32_to_bf16_bits,
+    topk_int8_scan,
+)
 
 
 def shard_matrix(matrix_t: jnp.ndarray, mesh: Mesh) -> jnp.ndarray:
@@ -77,9 +85,7 @@ def _merge_shard_candidates(s, gi, ndev, k_eff, sentinel_score=-jnp.inf):
     )
 
 
-@functools.partial(
-    jax.jit, static_argnames=("k", "mesh", "has_mask", "use_pallas", "interpret")
-)
+@functools.partial(jax.jit, static_argnames=("k", "mesh", "has_mask"))
 def _sharded_topk_impl(
     queries: jnp.ndarray,
     matrix_t: jnp.ndarray,
@@ -88,8 +94,6 @@ def _sharded_topk_impl(
     n_valid: jnp.ndarray,
     mask: jnp.ndarray,
     has_mask: bool,
-    use_pallas: bool = False,
-    interpret: bool = False,
 ) -> Tuple[jnp.ndarray, jnp.ndarray]:
     n_total = matrix_t.shape[1]
     ndev = mesh.shape[DATA_AXIS]
@@ -105,12 +109,7 @@ def _sharded_topk_impl(
         # rows from the local top-k BEFORE the post-hoc gi < n_valid mask
         # runs (same failure mode fixed in _sharded_int8_rerank_impl).
         local_nv = jnp.clip(n_valid - base, 0, shard_cols)
-        if use_pallas and not has_mask:
-            from tpuclip.ops.topk import topk_pallas
-
-            s, i = topk_pallas(q, m_shard, k_eff, n_valid=local_nv, interpret=interpret)
-        else:
-            s, i = topk_xla(q, m_shard, k_eff, mask=local_mask, n_valid=local_nv)
+        s, i = topk_xla(q, m_shard, k_eff, mask=local_mask, n_valid=local_nv)
         # mask local candidates that fall past the valid column count
         gi = i + base
         s = jnp.where(gi < n_valid, s, -jnp.inf)
@@ -132,62 +131,41 @@ def sharded_topk(
     mesh: Mesh,
     n_valid: jnp.ndarray,
     mask=None,
-    use_pallas: bool = None,
-    interpret: bool = False,
 ) -> Tuple[jnp.ndarray, jnp.ndarray]:
     """Distributed top-k. queries (Q, D) replicated; matrix_t (D, N)
     column-sharded over ``data``; optional additive ``mask`` (N,) (folder
     filters), sharded alongside the matrix.
 
-    ``use_pallas`` runs the fused kernel per shard (auto on TPU for
-    tile-aligned unmasked shards; XLA elsewhere — both paths validated
-    identical on an 8-device CPU mesh).
-
     Returns (scores, global_idx) each (Q, k), identical to a single-device
     scan over the unsharded matrix.
     """
     has_mask = mask is not None
-    ndev = mesh.shape[DATA_AXIS]
-    shard_cols = matrix_t.shape[1] // max(ndev, 1)
-    if use_pallas is None:
-        use_pallas = (
-            not has_mask
-            and k <= 128
-            and jax.default_backend() == "tpu"
-            and shard_cols >= 2048
-            and shard_cols % 2048 == 0
-        )
     if mask is None:
         mask = jnp.zeros((1, matrix_t.shape[1]), jnp.float32)
     else:
         mask = jnp.reshape(mask, (1, -1)).astype(jnp.float32)
-    return _sharded_topk_impl(
-        queries, matrix_t, k, mesh, n_valid, mask, has_mask,
-        use_pallas=bool(use_pallas), interpret=interpret,
-    )
+    return _sharded_topk_impl(queries, matrix_t, k, mesh, n_valid, mask, has_mask)
 
 
 @functools.partial(jax.jit, static_argnames=("k", "mesh", "has_mask"))
 def _sharded_topk_int8_impl(
-    q_int8, matrix_int8_t, scales, q_scale, k, mesh, n_valid, mask, has_mask
+    q_int8, matrix_int8, scales, q_scale, k, mesh, n_valid, mask, has_mask
 ):
-    n_total = matrix_int8_t.shape[1]
+    n_total = matrix_int8.shape[0]
     ndev = mesh.shape[DATA_AXIS]
-    shard_cols = n_total // ndev
+    shard_rows = n_total // ndev
     k_eff = min(k, n_total)
-
-    from tpuclip.ops.topk_int8 import topk_int8_xla
 
     def local(q, m_shard, sc_shard, qs, n_valid, mask_shard):
         my = jax.lax.axis_index(DATA_AXIS)
-        base = my * shard_cols
+        base = my * shard_rows
         local_mask = mask_shard[0] if has_mask else None
-        # Shard-local n_valid: zero-padded columns score exactly 0 (their
-        # int8 column is all zeros) and would otherwise evict real
-        # negative-scoring rows from the local top-k BEFORE the post-hoc
-        # gi < n_valid mask runs (same fix as _sharded_int8_rerank_impl).
-        local_nv = jnp.clip(n_valid - base, 0, shard_cols)
-        s, i = topk_int8_xla(
+        # Shard-local n_valid: zero-padded rows score exactly 0 (their int8
+        # row is all zeros) and would otherwise evict real negative-scoring
+        # rows from the local top-k BEFORE the post-hoc gi < n_valid mask
+        # runs (same fix as _sharded_int8_rerank_impl).
+        local_nv = jnp.clip(n_valid - base, 0, shard_rows)
+        s, i = topk_int8_scan(
             q, m_shard, sc_shard[0], qs, k_eff, n_valid=local_nv, mask=local_mask
         )
         gi = i + base
@@ -197,76 +175,74 @@ def _sharded_topk_int8_impl(
     return jax.shard_map(
         local,
         mesh=mesh,
-        in_specs=(P(), P(None, DATA_AXIS), P(None, DATA_AXIS), P(), P(), P(None, DATA_AXIS)),
+        in_specs=(P(), P(DATA_AXIS, None), P(None, DATA_AXIS), P(), P(), P(None, DATA_AXIS)),
         out_specs=(P(), P()),
         check_vma=False,
-    )(q_int8, matrix_int8_t, scales, q_scale, n_valid.astype(jnp.int32), mask)
+    )(q_int8, matrix_int8, scales, q_scale, n_valid.astype(jnp.int32), mask)
 
 
 def sharded_topk_int8(
-    q_int8, matrix_int8_t, scales, q_scale, k, mesh, n_valid, mask=None
+    q_int8, matrix_int8, scales, q_scale, k, mesh, n_valid, mask=None
 ):
-    """Distributed int8 top-k: int8 matrix + per-column scales column-sharded
-    over ``data``; same candidate-merge as the float path. Pair with
-    DeviceIndex's exact host re-rank for fp32-exact results at
-    ~0.7 GB/chip per 10M 1152-d vectors on a v5e-16."""
+    """Distributed int8 top-k: the (N, D) int8 matrix and its per-row
+    scales row-sharded over ``data``; same candidate-merge as the float
+    path. Pair with DeviceIndex's exact host re-rank for fp32-exact
+    results."""
     has_mask = mask is not None
     if mask is None:
-        mask = jnp.zeros((1, matrix_int8_t.shape[1]), jnp.float32)
+        mask = jnp.zeros((1, matrix_int8.shape[0]), jnp.float32)
     else:
         mask = jnp.reshape(mask, (1, -1)).astype(jnp.float32)
     scales2d = jnp.reshape(scales, (1, -1))
     return _sharded_topk_int8_impl(
-        q_int8, matrix_int8_t, scales2d, q_scale, k, mesh, n_valid, mask, has_mask
+        q_int8, matrix_int8, scales2d, q_scale, k, mesh, n_valid, mask, has_mask
     )
 
 
 @functools.partial(jax.jit, static_argnames=("k", "shortlist", "mesh"))
 def _sharded_int8_rerank_impl(
-    q_f32, matrix_int8_t, scales, rows_full, k, shortlist, mesh, n_valid
+    q_f32, matrix_int8, scales, rows_full, k, shortlist, mesh, n_valid
 ):
-    n_total = matrix_int8_t.shape[1]
+    n_total = matrix_int8.shape[0]
     ndev = mesh.shape[DATA_AXIS]
-    shard_cols = n_total // ndev
+    shard_rows = n_total // ndev
     k_eff = min(k, n_total)
     # Shortlist must cover the requested k within each shard (callers gate
     # k; direct API users with large k still get a covering depth).
-    m_local = min(max(shortlist, k_eff), shard_cols)
-
-    from tpuclip.ops.topk_int8 import (
-        quantize_queries_device,
-        round_f32_to_bf16_bits,
-        topk_int8_xla,
-    )
+    m_local = min(max(shortlist, k_eff), shard_rows)
 
     def local(q, m_shard, sc_shard, rows_shard, n_valid):
         my = jax.lax.axis_index(DATA_AXIS)
-        base = my * shard_cols
+        base = my * shard_rows
         # Shortlist scan skips the (rank-invariant) query scale; the rescore
         # below produces the exact returned scores. n_valid must reach the
-        # scan shard-locally: zero-padded columns score exactly 0 and would
+        # scan shard-locally: zero-padded rows score exactly 0 and would
         # otherwise evict real negative-scoring rows from the shortlist
-        # BEFORE the invalid mask runs (review r2+ finding).
+        # BEFORE the invalid mask runs.
         qi, _ = quantize_queries_device(q)
-        local_nv = jnp.clip(n_valid - base, 0, shard_cols)
-        s, i = topk_int8_xla(
+        local_nv = jnp.clip(n_valid - base, 0, shard_rows)
+        s, i = topk_int8_scan(
             qi, m_shard, sc_shard[0], jnp.asarray(1.0, jnp.float32), m_local,
             n_valid=local_nv,
         )
         # Exact rescore against the LOCAL full-precision rows: indices are
-        # shard-local, so no cross-shard gather — each chip touches only its
-        # own shortlist (a few hundred KB). The bit-level query rounding is
-        # load-bearing: XLA's excess-precision rule elides astype(bf16) into
-        # the dot, diverging from the bf16 scan's scores (see
-        # ops/topk_int8.topk_int8_rerank_fused for the measured failure).
-        safe = jnp.clip(i, 0, shard_cols - 1)
+        # shard-local, so no cross-shard gather — each device touches only
+        # its own shortlist (a few hundred KB). The bit-level query rounding
+        # is load-bearing: XLA's excess-precision rule elides astype(bf16)
+        # into the dot, diverging from the bf16 scan's scores (see
+        # ops/topk_int8._rescore_select, which also states why the default
+        # precision is exact for bf16 rows and f32 rows need HIGHEST).
+        safe = jnp.clip(i, 0, shard_rows - 1)
         if rows_shard.dtype == jnp.bfloat16:
             qr = round_f32_to_bf16_bits(q.astype(jnp.float32))
+            precision = None
         else:
             qr = q.astype(jnp.float32)
+            precision = jax.lax.Precision.HIGHEST
         gathered = rows_shard[safe].astype(jnp.float32)
         exact = jnp.einsum(
-            "qmd,qd->qm", gathered, qr, preferred_element_type=jnp.float32
+            "qmd,qd->qm", gathered, qr, preferred_element_type=jnp.float32,
+            precision=precision,
         )
         gi = i + base
         invalid = jnp.isneginf(s) | (gi >= n_valid)
@@ -283,30 +259,30 @@ def _sharded_int8_rerank_impl(
         mesh=mesh,
         in_specs=(
             P(),
-            P(None, DATA_AXIS),
+            P(DATA_AXIS, None),
             P(None, DATA_AXIS),
             P(DATA_AXIS, None),
             P(),
         ),
         out_specs=(P(), P()),
         check_vma=False,
-    )(q_f32, matrix_int8_t, scales, rows_full, n_valid.astype(jnp.int32))
+    )(q_f32, matrix_int8, scales, rows_full, n_valid.astype(jnp.int32))
 
 
 def sharded_topk_int8_rerank(
-    q_f32, matrix_int8_t, scales, rows_full, k, mesh, n_valid, shortlist=512
+    q_f32, matrix_int8, scales, rows_full, k, mesh, n_valid, shortlist=512
 ):
     """Distributed fused int8 scan + exact rescore (mesh analog of
-    ops/topk_int8.topk_int8_rerank_fused): int8 matrix + scales column-sharded
-    over ``data``, the full-precision ``rows_full`` (N_padded, D) ROW-sharded
-    alongside (same padding), queries replicated. Each shard rescores its own
+    ops/topk_int8.topk_int8_rerank_fused): the (N_padded, D) int8 matrix,
+    its scales and the full-precision ``rows_full`` (N_padded, D) all
+    row-sharded over ``data`` (same padding), queries replicated. Each shard rescores its own
     int8 shortlist against its local rows, takes an exact per-shard top-k,
     and one all_gather merges candidates — scores returned are exact
     full-precision dots, identical ordering to the single-device fused path.
     """
     scales2d = jnp.reshape(scales, (1, -1))
     return _sharded_int8_rerank_impl(
-        q_f32, matrix_int8_t, scales2d, rows_full, k, shortlist, mesh, n_valid
+        q_f32, matrix_int8, scales2d, rows_full, k, shortlist, mesh, n_valid
     )
 
 
@@ -346,148 +322,6 @@ def _sharded_binary_topk_impl(query_words, matrix_words, k, mesh, n_valid, mask,
         out_specs=(P(), P()),
         check_vma=False,
     )(query_words, matrix_words, n_valid.astype(jnp.int32), mask)
-
-
-def shard_words_grouped(words, mesh: Mesh, tile_n: int = None):
-    """Host (N, W) packed words → per-shard sublane-grouped layout for the
-    mesh cascade: a (ndev, W, 8, rps/8) array sharded on axis 0, where shard
-    ``s`` holds the ORIGINAL row block [s*rps, (s+1)*rps) in the grouped
-    word-major form the binary Pallas kernels stream at HBM bandwidth
-    (ops/hamming.pad_words_grouped — uploading pre-grouped avoids the
-    ~300 GB/s per-query retile a words_t-resident array pays).
-
-    Returns (sharded_device_array, rps, n_valid). Global row recovery is
-    ``s * rps + local_col``; rows past ``n_valid`` in the last shard(s) are
-    zero padding, masked shard-locally via clip(n_valid - s*rps, 0, rps).
-    """
-    import numpy as np
-
-    from tpuclip.ops.hamming import BINARY_TILE_N
-
-    if tile_n is None:
-        tile_n = BINARY_TILE_N
-    n, w = words.shape
-    ndev = mesh.shape[DATA_AXIS]
-    rps = -(-max(-(-n // ndev), 1) // tile_n) * tile_n  # rows/shard, tile-aligned
-    total = ndev * rps
-    if total > n:
-        words = np.concatenate(
-            [words, np.zeros((total - n, w), words.dtype)], axis=0
-        )
-    # per-shard grouped views: (W, rps) word-major -> (W, 8, rps/8)
-    blocks = words.reshape(ndev, rps, w)
-    grouped = np.ascontiguousarray(
-        blocks.transpose(0, 2, 1)
-    ).reshape(ndev, w, 8, rps // 8)
-    arr = jax.device_put(
-        jnp.asarray(grouped), NamedSharding(mesh, P(DATA_AXIS, None, None, None))
-    )
-    return arr, rps, n
-
-
-@functools.partial(
-    jax.jit, static_argnames=("m", "mesh", "shard_rows", "interpret")
-)
-def sharded_binary_shortlist(
-    query_words, grouped_sh, m, mesh, n_valid, shard_rows, interpret=False
-):
-    """Mesh cascade prefilter, single unmasked query: each shard runs the
-    grouped scores kernel + ``approx_max_k`` over its row block
-    (ops/hamming.binary_shortlist_q1 — measured ~92% of HBM peak per chip),
-    then one O(ndev*m) all_gather merges the shortlists. Returns
-    ((1, m_eff) f32 match counts, (1, m_eff) i32 GLOBAL rows), ordered
-    (score desc, idx asc); invalid lanes carry -inf. Approximate with the
-    same coverage contract as the single-device shortlist — callers rescore
-    against full-precision rows."""
-    from tpuclip.ops.hamming import BINARY_TILE_N, binary_shortlist_q1
-
-    ndev = mesh.shape[DATA_AXIS]
-    m_local = min(m, shard_rows)
-    m_eff = min(m, ndev * shard_rows)
-    # shards smaller than the default kernel tile (CPU-mesh tests) run a
-    # shard-sized tile; production shards are BINARY_TILE_N multiples
-    tile = min(BINARY_TILE_N, shard_rows)
-
-    def local(q, g_block, nv):
-        my = jax.lax.axis_index(DATA_AXIS)
-        base = my * shard_rows
-        local_nv = jnp.clip(nv - base, 0, shard_rows)
-        s, i = binary_shortlist_q1(
-            q, g_block[0], m_local, n_valid=local_nv, tile_n=tile,
-            interpret=interpret,
-        )
-        gi = jnp.where(jnp.isneginf(s), jnp.iinfo(jnp.int32).max, i + base)
-        return _merge_shard_candidates(s, gi, ndev, m_eff)
-
-    return jax.shard_map(
-        local,
-        mesh=mesh,
-        in_specs=(P(), P(DATA_AXIS, None, None, None), P()),
-        out_specs=(P(), P()),
-        check_vma=False,
-    )(query_words, grouped_sh, n_valid.astype(jnp.int32))
-
-
-@functools.partial(
-    jax.jit, static_argnames=("k", "mesh", "shard_rows", "has_mask")
-)
-def _sharded_binary_topk_grouped_impl(
-    query_words, grouped_sh, k, mesh, n_valid, shard_rows, mask, has_mask
-):
-    from tpuclip.ops.hamming import binary_topk_packed_t
-
-    ndev = mesh.shape[DATA_AXIS]
-    k_local = min(k, shard_rows)
-    k_eff = min(k, ndev * shard_rows)
-    sentinel = jnp.iinfo(jnp.int32).min
-
-    def local(q, g_block, nv, mask_sh):
-        my = jax.lax.axis_index(DATA_AXIS)
-        base = my * shard_rows
-        local_nv = jnp.clip(nv - base, 0, shard_rows)
-        local_mask = mask_sh[0] if has_mask else None
-        s, i = binary_topk_packed_t(
-            q, g_block[0], k_local, mask=local_mask, n_valid=local_nv
-        )
-        gi = jnp.where(s <= sentinel + 1, jnp.iinfo(jnp.int32).max, i + base)
-        s, gi = _pad_local_candidates(s, gi, k_eff, sentinel)
-        s_all = jax.lax.all_gather(s, DATA_AXIS)
-        i_all = jax.lax.all_gather(gi, DATA_AXIS)
-        q_count = q.shape[0]
-        s_flat = jnp.transpose(s_all, (1, 0, 2)).reshape(q_count, ndev * k_eff)
-        i_flat = jnp.transpose(i_all, (1, 0, 2)).reshape(q_count, ndev * k_eff)
-        from tpuclip.ops.hamming import _merge_int_candidates
-
-        return _merge_int_candidates(s_flat, i_flat, k_eff)
-
-    return jax.shard_map(
-        local,
-        mesh=mesh,
-        in_specs=(P(), P(DATA_AXIS, None, None, None), P(), P(None, DATA_AXIS)),
-        out_specs=(P(), P()),
-        check_vma=False,
-    )(query_words, grouped_sh, n_valid.astype(jnp.int32), mask)
-
-
-def sharded_binary_topk_grouped(
-    query_words, grouped_sh, k, mesh, n_valid, shard_rows, mask=None
-):
-    """Exact mesh binary top-k over the per-shard GROUPED layout
-    (shard_words_grouped): masked/batched cascade prefilters and binary
-    searches share the cascade's resident array instead of needing a second
-    rows-layout copy. Integer-exact (score desc, global idx asc) ordering,
-    parity with the single-device binary_topk_packed_t. ``mask`` is the
-    additive -inf/0 folder mask over the global padded width
-    (ndev * shard_rows), column-sharded alongside the matrix."""
-    has_mask = mask is not None
-    total = mesh.shape[DATA_AXIS] * shard_rows
-    if mask is None:
-        mask = jnp.zeros((1, total), jnp.float32)
-    else:
-        mask = jnp.reshape(mask, (1, -1)).astype(jnp.float32)
-    return _sharded_binary_topk_grouped_impl(
-        query_words, grouped_sh, k, mesh, n_valid, shard_rows, mask, has_mask
-    )
 
 
 def sharded_binary_topk(query_words, matrix_words, k, mesh, n_valid, mask=None):

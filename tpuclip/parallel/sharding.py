@@ -1,9 +1,9 @@
 """Parameter sharding rules (DP + optional TP).
 
 Pick a mesh, annotate shardings, let XLA insert the collectives — the
-scaling-book recipe. The towers are small enough that TP is optional on v5e,
-but the rules are real: attention heads and MLP hidden shard over ``model``,
-everything contracts back with an XLA-inserted reduce over ICI.
+scaling-book recipe. The towers are small enough that TP is optional on one
+GPU, but the rules are real: attention heads and MLP hidden shard over
+``model``, everything contracts back with an XLA-inserted reduce.
 
 Encoder leaves carry a leading layer axis (lax.scan stacking), so specs have
 a leading None.

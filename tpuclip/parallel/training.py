@@ -70,12 +70,12 @@ def make_optimizer(
     near -10) toward 0 would steadily mis-calibrate the sigmoid loss.
 
     ``factored=True`` selects Adafactor (factored second moment, no first
-    moment) instead of AdamW — the single-chip recipe for SO400M-scale
-    fine-tuning: AdamW's two fp32 moment trees push the full train step to
-    ~18.4 GB HBM, past a 16 GB v5e chip (measured compile-time OOM,
-    scripts/probe_train_compile.py), while Adafactor's state is ~KBs of
-    row/column statistics per matrix. Multi-chip meshes shard the AdamW
-    state instead (parallel/sharding.py) and don't need this.
+    moment) instead of AdamW — for a single device whose memory cannot hold
+    AdamW's two fp32 moment trees beside params and grads (the trainer
+    decides from the device's memory, pipelines/train.py), while
+    Adafactor's state is ~KBs of row/column statistics per matrix. Meshes
+    shard the AdamW state instead (parallel/sharding.py) and don't need
+    this.
     """
     if warmup_steps > 0 or total_steps is not None:
         if total_steps is not None and total_steps > warmup_steps:
@@ -137,7 +137,7 @@ def make_train_step(
     # flag: the scan body is jax.checkpoint'ed only in programs traced
     # here, so the backward pass recomputes per-layer activations instead
     # of stashing them (at SO400M the stash — incl. 27x(B,256,4304) MLP
-    # intermediates — pushes fwd+bwd past a 16 GB chip). Inference
+    # intermediates — is most of the fwd+bwd memory). Inference
     # programs trace outside the scope and keep the stash-free forward.
     jit_step = jax.jit(step, donate_argnums=(0,))
 

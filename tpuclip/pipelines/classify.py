@@ -41,7 +41,9 @@ def classify_image(
             f"{model_name} is a NaFlex model, which classify does not support yet; "
             "use a fixed-resolution preset"
         )
-    compute_dtype = jnp.bfloat16 if jax.default_backend() == "tpu" else jnp.float32
+    from tpuclip import platform
+
+    compute_dtype = platform.compute_dtype()
     params = jax.device_put(cast_params(params, compute_dtype))
     ckpt = find_local_checkpoint(model_name, model_cache_dir)
     tokenizer = load_tokenizer(

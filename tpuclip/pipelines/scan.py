@@ -6,7 +6,7 @@ check → embed → hash → batched idempotent commits; Ctrl-C flushes pending
 work and prints resume instructions; ``--limit`` for testing; opt-in
 profiling report with images/sec throughput.
 
-TPU-native differences:
+Differences from the reference:
 - Decode+resize+hash run on a thread pool *ahead of* the device
   (tpuclip.io.prefetch), instead of serially inside the embed call — the
   accelerator never waits on PIL.

@@ -97,10 +97,14 @@ def train(
     seed: int = 0,
     log_every: int = 10,
     optimizer: str = "auto",
-) -> None:
+) -> List[float]:
+    """Fine-tune for ``steps`` steps and save the model and train state
+    under ``output_dir``; returns the per-step losses (empty when the run
+    could not start)."""
     import jax
     import jax.numpy as jnp
 
+    from tpuclip import platform
     from tpuclip.models.checkpoint import save_checkpoint
     from tpuclip.models.loader import find_local_checkpoint, load_model
     from tpuclip.parallel.checkpoint import restore_train_state, save_train_state
@@ -117,7 +121,7 @@ def train(
     pairs = find_pairs(data_dir)
     if len(pairs) < batch_size:
         log(f"[X] Need at least {batch_size} (image, caption) pairs; found {len(pairs)}")
-        return
+        return []
     log(f"Dataset: {len(pairs)} image/caption pairs from {data_dir}")
 
     cfg, params = load_model(model_name, model_cache_dir)
@@ -125,7 +129,7 @@ def train(
         # The square-pixel prefetcher + vision_forward train step do not
         # match NaFlex's patchified input contract (models/naflex.py).
         log(f"[X] {model_name} is a NaFlex model; training does not support NaFlex yet")
-        return
+        return []
     ckpt_dir = find_local_checkpoint(model_name, model_cache_dir)
     tokenizer = load_tokenizer(
         model_name, str(ckpt_dir) if ckpt_dir else None, vocab_size=cfg.text.vocab_size
@@ -136,29 +140,24 @@ def train(
     n_dev = len(jax.devices())
     usable = next((d for d in range(min(n_dev, batch_size), 0, -1) if batch_size % d == 0), 1)
     mesh = make_mesh(jax.devices()[:usable]) if usable > 1 else None
-    compute_dtype = jnp.bfloat16 if jax.default_backend() == "tpu" else jnp.float32
+    compute_dtype = platform.compute_dtype()
     if mesh is not None:
         params = shard_params(params, mesh)
         log(f"Mesh: {dict(mesh.shape)}")
 
-    # Optimizer memory: AdamW keeps two fp32 moment trees — at SO400M scale
-    # the full step needs ~18.4 GB HBM, past a single 16 GB v5e chip
-    # (compile-time OOM, scripts/probe_train_compile.py). "auto" picks
-    # Adafactor (factored second moment, ~KBs of state) when the state
-    # would not fit one chip and no mesh shards it.
+    # Optimizer memory: AdamW keeps two fp32 moment trees beside the fp32
+    # params and grads. "auto" picks Adafactor (factored second moment,
+    # ~KBs of state) when those four trees would not fit the device's
+    # memory (platform.fits) and no mesh shards them.
     if optimizer == "auto":
         param_bytes = sum(
             int(np.prod(p.shape)) * 4 for p in jax.tree_util.tree_leaves(params)
         )
-        factored = (
-            mesh is None
-            and jax.default_backend() == "tpu"
-            and param_bytes * 4 > 10e9  # params + grads + 2 moments, fp32
-        )
+        factored = mesh is None and not platform.fits(4 * param_bytes)
     else:
         factored = optimizer == "adafactor"
     if factored:
-        log("Optimizer: adafactor (AdamW state would exceed single-chip HBM)"
+        log("Optimizer: adafactor (AdamW state would exceed the device's memory)"
             if optimizer == "auto" else "Optimizer: adafactor")
     opt = make_optimizer(
         learning_rate=learning_rate,
@@ -188,7 +187,13 @@ def train(
 
     out = Path(output_dir)
     save_checkpoint(str(out / "model"), jax.device_get(state.params), cfg)
-    save_train_state(str(out / "train_state"), state)
     log(f"\nSaved fine-tuned model to {out / 'model'} (tpuclip format)")
-    log(f"Saved train state to {out / 'train_state'} (orbax)")
+    try:
+        save_train_state(str(out / "train_state"), state)
+    except ImportError:
+        log("[WARNING] Train state not saved: resuming needs orbax "
+            "(pip install 'tpuclip[train]')")
+    else:
+        log(f"Saved train state to {out / 'train_state'} (orbax)")
     banner("Training complete")
+    return losses

@@ -345,8 +345,8 @@ def _check_parity(report, src, cfg, params, tok, bound) -> None:
         ids = rng.integers(0, cfg.text.vocab_size, size=(2, 64)).astype(np.int32)
         mask = np.ones((2, 64), np.int32)
 
-    # Device f32 matmuls default to bf16 passes on TPU — force the exact
-    # path for an oracle comparison (docs: verify skill "Device f32 ≠ IEEE").
+    # Default-precision f32 matmuls run in TF32 on the GPU — force the
+    # exact path for an oracle comparison.
     with jax.default_matmul_precision("highest"):
         ours_img = np.asarray(get_image_features(params, jnp.asarray(pixels), cfg))
         ours_txt = np.asarray(

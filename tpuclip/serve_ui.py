@@ -160,7 +160,7 @@ UI_HTML = """<!DOCTYPE html>
 </style>
 </head>
 <body>
-<h1>tpu<span>clip</span></h1>
+<h1>tpuclip</h1>
 <div class="sub">semantic image search &mdash; text, blends (<code>a + b</code>),
 negatives (<code>a - b</code>), or an uploaded image</div>
 <form id="f">
